@@ -1,0 +1,366 @@
+"""LAUD-ViT eval forward with token, head and layer (block) gating
+(counterpart of `laudnet_tpu/models/laud_vit.py`).
+
+DeiT-style backbone. Gates are eval ``on >= off`` comparisons
+(`ops/gating.py`). Skipped tokens are removed as attention keys by an
+additive -1e9 mask and contribute nothing to the residual stream; with
+``token_capacity`` the surviving tokens are gathered down to a fixed
+budget at block entry (the serving selection path). FLOPs bookkeeping
+follows the simulator's cost model in the JAX package exactly, quirks
+included.
+
+Images enter NHWC (B, H, W, 3) as in the JAX package; token streams are
+(B, L, D) and masks (B, L). Training, the fused attention kernel, the T2T
+stem and the int8 linears belong to later slices and raise.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional, Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from laudnet_tpu_torch.ops.gating import binary_gate
+from laudnet_tpu_torch.ops.vit_attention import reference_vit_attention
+
+LN_EPS = 1e-6  # flax's LayerNorm default (torch's is 1e-5)
+
+
+@dataclasses.dataclass
+class ViTBlockStats:
+    token_density: torch.Tensor
+    head_density: torch.Tensor
+    attn_density: torch.Tensor
+    mlp_density: torch.Tensor
+    flops_perc: torch.Tensor
+    sparse_flops: torch.Tensor
+    token_keep: torch.Tensor      # (B,) per-image kept-token fraction
+    token_score: torch.Tensor     # (B, L) token-gate logit margin
+
+
+@dataclasses.dataclass
+class LAUDViTOutput:
+    logits: torch.Tensor
+    token_density: torch.Tensor   # (depth,)
+    head_density: torch.Tensor
+    attn_density: torch.Tensor
+    mlp_density: torch.Tensor
+    flops_perc: torch.Tensor      # (depth,)
+    flops: torch.Tensor
+    token_keep: torch.Tensor      # (depth, B)
+
+
+def vit_block_bookkeeping(tok, hd, ak, mk, *, l_book: int, d: int, h: int,
+                          hidden: int, policy_flops: float):
+    """The block FLOPs model as a function of the four densities; returns
+    ``(sparse, dense)`` multiply-adds as f32 tensors. The operation order
+    is the JAX package's, so f32 results agree to the last bits."""
+    dh = d // h
+    f32 = lambda v: torch.as_tensor(v, dtype=torch.float32)
+    one = f32(1.0)
+
+    def block_flops(tok, hd, ak, mk):
+        qkv_f = 3 * l_book * d * d * hd
+        attn_f = 2 * h * (l_book * tok) ** 2 * dh * hd
+        proj_f = (l_book * tok) * d * d * hd * hd
+        mlp_f = (l_book * tok) * d * hidden * (hd + 1.0)
+        return ak * (qkv_f + attn_f + proj_f) + mk * mlp_f
+
+    sparse = f32(policy_flops) + block_flops(f32(tok), f32(hd), f32(ak),
+                                             f32(mk))
+    dense = f32(policy_flops) + block_flops(one, one, one, one)
+    return sparse, dense
+
+
+def vit_policy_flops(l_book: int, d: int, h: int, *, token_skip: bool,
+                     head_skip: bool, layer_skip: bool) -> float:
+    """Multiply-adds of the policy heads one block runs."""
+    flops = 0
+    if layer_skip:
+        flops += d * 4
+    if head_skip:
+        flops += d * 2 * h
+    if token_skip:
+        flops += l_book * d * 2
+    return flops
+
+
+def _open_bias_(bias: torch.Tensor, split: int) -> None:
+    """Policy biases start the gates OPEN: keep-logits +2, skip-logits -2."""
+    with torch.no_grad():
+        bias.fill_(-2.0)
+        bias[:split] = 2.0
+
+
+class LAUDViTBlock(nn.Module):
+    """Pre-norm transformer block with the three gating paradigms."""
+
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0, *,
+                 token_skip: bool = True, head_skip: bool = True,
+                 layer_skip: bool = True, device=None, dtype=None):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        self.dim, self.num_heads = dim, num_heads
+        self.hidden = int(dim * mlp_ratio)
+        self.token_skip, self.head_skip = token_skip, head_skip
+        self.layer_skip = layer_skip
+        self.layer_policy = nn.Linear(dim, 4, **kw) if layer_skip else None
+        self.head_policy = (nn.Linear(dim, 2 * num_heads, **kw)
+                            if head_skip else None)
+        self.token_policy = nn.Linear(dim, 2, **kw) if token_skip else None
+        self.norm1 = nn.LayerNorm(dim, eps=LN_EPS, **kw)
+        self.qkv = nn.Linear(dim, 3 * dim, **kw)
+        self.proj = nn.Linear(dim, dim, **kw)
+        self.norm2 = nn.LayerNorm(dim, eps=LN_EPS, **kw)
+        self.fc1 = nn.Linear(dim, self.hidden, **kw)
+        self.fc2 = nn.Linear(self.hidden, dim, **kw)
+
+    def forward(self, x, token_mask, *, capacity: Optional[int] = None,
+                book_len: Optional[int] = None):
+        """``capacity``: static keep count gathered right after the token
+        gate, before this block's attention; ``book_len``: the original
+        token count (N+1) the FLOPs are booked against."""
+        b, l, d = x.shape
+        l_book = book_len or l
+        h = self.num_heads
+        f32 = lambda v: torch.as_tensor(v, dtype=torch.float32,
+                                        device=x.device)
+        one = f32(1.0)
+        cls = x[:, 0]
+
+        attn_keep = mlp_keep = one
+        attn_gate = mlp_gate = None
+        policy_flops = 0
+        if self.layer_policy is not None:
+            pair = self.layer_policy(cls).reshape(b, 2, 2)
+            gate = binary_gate(pair)  # (B, [attn, mlp])
+            attn_gate, mlp_gate = gate[:, 0], gate[:, 1]
+            attn_keep, mlp_keep = attn_gate.mean(), mlp_gate.mean()
+            policy_flops += d * 4
+
+        head_mask = None
+        head_density = one
+        if self.head_policy is not None:
+            head_mask = binary_gate(self.head_policy(cls).reshape(b, 2, h))
+            head_density = head_mask.mean()
+            policy_flops += d * 2 * h
+
+        token_score = torch.zeros((b, l), dtype=torch.float32,
+                                  device=x.device)
+        if self.token_policy is not None:
+            tlogits = self.token_policy(x)
+            tmask = binary_gate(tlogits.reshape(b, l, 2, 1))[..., 0]
+            tmask[:, 0] = 1.0  # class token always kept; gates compose
+            token_mask = token_mask * tmask
+            token_score = (tlogits[..., 0] - tlogits[..., 1]).float()
+            policy_flops += l_book * d * 2
+        # density of the current buffer, rescaled to the full length
+        token_density = token_mask.mean() * (l / l_book)
+        token_keep = token_mask.mean(dim=1) * (l / l_book)
+
+        if capacity is not None and capacity < l:
+            # kept strictly above dropped, ties among kept by confidence,
+            # class token pinned; descending stable sort = lax.top_k order
+            rank = token_mask.float() * 2.0 + torch.sigmoid(token_score)
+            rank[:, 0] += 4.0
+            idx = torch.sort(rank, dim=1, descending=True,
+                             stable=True).indices[:, :capacity]
+            x = torch.gather(x, 1, idx[..., None].expand(-1, -1, d))
+            token_mask = torch.gather(token_mask, 1, idx)
+            token_score = torch.gather(token_score, 1, idx)
+            l = capacity
+
+        y = self.norm1(x)
+        out = reference_vit_attention(self.qkv(y), token_mask, head_mask, h,
+                                      (d // h) ** -0.5)
+        out = self.proj(out) * token_mask.to(x.dtype)[:, :, None]
+        if attn_gate is not None:
+            out = out * attn_gate.to(out.dtype)[:, None, None]
+        x = x + out
+
+        y = self.fc2(F.gelu(self.fc1(self.norm2(x)), approximate="none"))
+        y = y * token_mask.to(y.dtype)[:, :, None]
+        if mlp_gate is not None:
+            y = y * mlp_gate.to(y.dtype)[:, None, None]
+        x = x + y
+
+        sparse, dense = vit_block_bookkeeping(
+            token_density, head_density, attn_keep, mlp_keep, l_book=l_book,
+            d=d, h=h, hidden=self.hidden, policy_flops=policy_flops)
+        stats = ViTBlockStats(
+            token_density=token_density, head_density=head_density,
+            attn_density=attn_keep, mlp_density=mlp_keep,
+            flops_perc=sparse / dense, sparse_flops=sparse,
+            token_keep=token_keep, token_score=token_score)
+        return x, token_mask, stats
+
+
+class LAUDViT(nn.Module):
+    """DeiT-style LAUD-ViT, eval forward.
+
+    ``token_capacity`` enables the token-selection serving path: right
+    after block ``i``'s token gate, surviving tokens are gathered down to
+    ``int(capacity[i] * (N+1))`` so that block's attention and MLP and
+    every later one run at the reduced length. ``img_size`` fixes the
+    position-embedding length (the JAX module infers it at init).
+    Parameters are drawn from ``generator`` (an explicit
+    ``torch.Generator``) when given, else left to the caller (e.g.
+    `convert.from_jax.load_flax_variables`)."""
+
+    def __init__(self, depth: int = 12, dim: int = 384, num_heads: int = 6,
+                 mlp_ratio: float = 4.0, patch_size: int = 16,
+                 num_classes: int = 1000, token_skip: bool = True,
+                 head_skip: bool = True, layer_skip: bool = True,
+                 token_capacity: Optional[Sequence[float]] = None,
+                 stem: str = "patch", attn_impl: str = "reference",
+                 linear_impl: str = "dense", img_size: int = 224,
+                 in_chans: int = 3, device=None, dtype=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if stem != "patch":
+            raise NotImplementedError(
+                "stem='t2t' belongs to the T2T-ViT-19 slice of the port")
+        if attn_impl != "reference":
+            raise NotImplementedError(
+                "attn_impl='fused' (kernels B4/B5) belongs to the training "
+                "slice of the port")
+        if linear_impl != "dense":
+            raise NotImplementedError(
+                "linear_impl='int8*' (kernel B6) belongs to the int8 slice "
+                "of the port")
+        kw = dict(device=device, dtype=dtype)
+        self.depth, self.dim, self.num_heads = depth, dim, num_heads
+        self.mlp_ratio, self.patch_size = mlp_ratio, patch_size
+        self.num_classes, self.stem = num_classes, stem
+        self.token_skip, self.head_skip = token_skip, head_skip
+        self.layer_skip = layer_skip
+        self.token_capacity = token_capacity
+        self.num_patches = (img_size // patch_size) ** 2
+        self.patch_embed = nn.Conv2d(in_chans, dim, patch_size,
+                                     stride=patch_size, **kw)
+        self.cls_token = nn.Parameter(torch.empty(1, 1, dim, **kw))
+        self.pos_embed = nn.Parameter(
+            torch.empty(1, self.num_patches + 1, dim, **kw))
+        self.blocks = nn.ModuleList(
+            LAUDViTBlock(dim, num_heads, mlp_ratio, token_skip=token_skip,
+                         head_skip=head_skip, layer_skip=layer_skip, **kw)
+            for _ in range(depth))
+        self.norm = nn.LayerNorm(dim, eps=LN_EPS, **kw)
+        self.head = nn.Linear(dim, num_classes, **kw)
+        if generator is not None:
+            self.init_weights(generator)
+
+    @torch.no_grad()
+    def init_weights(self, generator: torch.Generator) -> None:
+        """Flax's defaults: lecun-normal kernels (truncated, std
+        1/sqrt(fan_in)), zero biases, unit LayerNorms, truncated-normal
+        0.02 cls/pos embeddings, and policy gates open."""
+        def lecun_(w, fan_in):
+            nn.init.trunc_normal_(w, std=1.0 / math.sqrt(fan_in),
+                                  a=-2.0 / math.sqrt(fan_in),
+                                  b=2.0 / math.sqrt(fan_in),
+                                  generator=generator)
+
+        for m in self.modules():
+            if isinstance(m, nn.Linear):
+                lecun_(m.weight, m.in_features)
+                nn.init.zeros_(m.bias)
+            elif isinstance(m, nn.Conv2d):
+                lecun_(m.weight, m.weight[0].numel())
+                nn.init.zeros_(m.bias)
+            elif isinstance(m, nn.LayerNorm):
+                nn.init.ones_(m.weight)
+                nn.init.zeros_(m.bias)
+        for p in (self.cls_token, self.pos_embed):
+            nn.init.trunc_normal_(p, std=0.02, a=-0.04, b=0.04,
+                                  generator=generator)
+        for blk in self.blocks:
+            if blk.layer_policy is not None:
+                _open_bias_(blk.layer_policy.bias, 2)
+            if blk.head_policy is not None:
+                _open_bias_(blk.head_policy.bias, self.num_heads)
+            if blk.token_policy is not None:
+                _open_bias_(blk.token_policy.bias, 1)
+
+    def forward(self, x, temperature=None, *, training: bool = False):
+        """``x``: NHWC images. ``temperature`` is unused at eval."""
+        if training:
+            raise NotImplementedError(
+                "training=True belongs to the training slice of the port")
+        b, _, _, c = x.shape
+        x = self.patch_embed(x.permute(0, 3, 1, 2))
+        n = x.shape[2] * x.shape[3]
+        x = x.flatten(2).transpose(1, 2)
+        flops = torch.tensor(float(c * self.dim * self.patch_size ** 2 * n),
+                             dtype=torch.float32)
+        x = torch.cat([self.cls_token.expand(b, -1, -1), x], dim=1)
+        x = x + self.pos_embed
+
+        token_mask = torch.ones((b, n + 1), dtype=torch.float32,
+                                device=x.device)
+        cur_len = n + 1
+        stats_all = []
+        for i, blk in enumerate(self.blocks):
+            cap = None
+            if self.token_capacity is not None:
+                k = min(max(2, int(self.token_capacity[i] * (n + 1))),
+                        cur_len)
+                if k < cur_len:
+                    cap = cur_len = k
+            x, token_mask, st = blk(x, token_mask, capacity=cap,
+                                    book_len=n + 1)
+            stats_all.append(st)
+            flops = flops + st.sparse_flops
+
+        x = self.norm(x)
+        logits = self.head(x[:, 0])
+        flops = flops + self.dim * self.num_classes
+
+        def stack(f):
+            return torch.stack([f(s).to(logits.device) for s in stats_all])
+
+        return LAUDViTOutput(
+            logits=logits,
+            token_density=stack(lambda s: s.token_density),
+            head_density=stack(lambda s: s.head_density),
+            attn_density=stack(lambda s: s.attn_density),
+            mlp_density=stack(lambda s: s.mlp_density),
+            flops_perc=stack(lambda s: s.flops_perc),
+            flops=flops,
+            token_keep=stack(lambda s: s.token_keep),
+        )
+
+
+def vit_dense_flops(model: LAUDViT, input_size: int = 224,
+                    in_chans: int = 3) -> float:
+    """Closed-form dense multiply-adds of a :class:`LAUDViT` (all gates
+    open): blocks, policy heads, stem and classifier."""
+    d, h = model.dim, model.num_heads
+    dh = d // h
+    hidden = int(d * model.mlp_ratio)
+    n = (input_size // model.patch_size) ** 2
+    stem = float(in_chans * d * model.patch_size ** 2 * n)
+    l = n + 1
+    policy = vit_policy_flops(l, d, h, token_skip=model.token_skip,
+                              head_skip=model.head_skip,
+                              layer_skip=model.layer_skip)
+    block = (policy + 3 * l * d * d + 2 * h * l * l * dh + l * d * d
+             + 2 * l * d * hidden)
+    return stem + model.depth * block + d * model.num_classes
+
+
+def laud_deit_small(**kwargs) -> LAUDViT:
+    """LAUD-DeiT-S: 12 blocks, dim 384, 6 heads."""
+    return LAUDViT(depth=12, dim=384, num_heads=6, mlp_ratio=4.0, **kwargs)
+
+
+def laud_deit_tiny(**kwargs) -> LAUDViT:
+    return LAUDViT(depth=12, dim=192, num_heads=3, mlp_ratio=4.0, **kwargs)
+
+
+def laud_deit_base(**kwargs) -> LAUDViT:
+    return LAUDViT(depth=12, dim=768, num_heads=12, mlp_ratio=4.0, **kwargs)

@@ -1,0 +1,305 @@
+"""Fused pre-norm ViT block (B1) and layer segment (B2).
+
+Counterparts of `laudnet_tpu/ops/pallas/vit_block.py::fused_vit_block` and
+`::fused_vit_segment`. One layer computes
+
+    x2  = x + proj(MHA(LN1(x))) * row_mask
+    out = x2 + fc2(GELU(fc1(LN2(x2)))) * row_mask
+
+with an additive -1e9 key mask in the attention. ``fast_math`` swaps in
+one-pass LayerNorm, tanh GELU and softmax normalised after P.V.
+
+Each wrapper takes the plain PyTorch version below only for tensors on the
+CPU. For CUDA tensors it launches the hand-written kernels of
+``csrc/vit_block.cu`` (bf16 only) or raises; it never falls back. Each
+wrapper counts its kernel launches in ``<wrapper>.launches``.
+
+A layer's parameters are a dict in torch.nn.Linear layout:
+``{"ln1", "qkv", "proj", "ln2", "fc1", "fc2"}``, each ``{"weight",
+"bias"}`` (Linear weights are (out, in)); a segment layer may also carry
+``"token_policy"`` {weight (2, D), bias (2,)}.
+"""
+
+from __future__ import annotations
+
+import torch
+
+NEG = -1e9
+DH = 64            # head width the attention kernel takes
+MAX_DIM = 1024     # LayerNorm kernel: 32 values per lane
+MAX_LEN = 256      # attention kernel: a warp's score rows in registers
+EPI_QKV, EPI_PROJ, EPI_FC1, EPI_FC2 = 0, 1, 2, 3  # csrc/vit_block.cu
+
+
+# --- plain block math ------------------------------------------------------
+
+def layer_norm(x, weight, bias, eps=1e-6):
+    """Two-pass LayerNorm in f32 (`vit_block.py::_ln`); eps is flax's."""
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return y * weight.float() + bias.float()
+
+
+def layer_norm_onepass(x, weight, bias, eps=1e-6):
+    """One-pass LayerNorm, var = E[x^2] - mu^2 (`vit_block.py::_ln_onepass`)."""
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = (xf * xf).mean(-1, keepdim=True) - mu * mu
+    y = (xf - mu) * torch.rsqrt(var.clamp_min(0.0) + eps)
+    return y * weight.float() + bias.float()
+
+
+def gelu_exact(x):
+    """Erf GELU (the TPU kernel's A-S polynomial is within 1.5e-7 of it)."""
+    return 0.5 * x * (1.0 + torch.erf(x * 0.7071067811865476))
+
+
+def gelu_tanh(x):
+    """The tanh GELU approximation (`vit_block.py::_gelu_tanh`)."""
+    return 0.5 * x * (1.0 + torch.tanh(
+        0.7978845608028654 * (x + 0.044715 * x * x * x)))
+
+
+def _mm(a, weight, bias):
+    """a @ weight.T + bias with f32 accumulation: bf16 products are exact in
+    f32, so this is the TPU kernel's bf16-operand, f32-accumulate product."""
+    return a.float() @ weight.float().t() + bias.float()
+
+
+def attention(qkv, neg, num_heads, sm_scale, fast=False):
+    """Masked MHA over packed (B, L, 3D) qkv in the compute dtype, heads
+    merged, rounded to that dtype per head (`vit_block.py::_pair_attention`
+    without the TPU lane pairing). ``neg``: (B, L) additive key mask.
+    Exact normalises p before P.V; ``fast`` uses p = exp(s - max) rounded
+    for P.V and divides by the unrounded f32 row sum afterwards."""
+    cdt = qkv.dtype
+    b, l, d3 = qkv.shape
+    d = d3 // 3
+    dh = d // num_heads
+    x = qkv.reshape(b, l, 3, num_heads, dh).permute(2, 0, 3, 1, 4)
+    q, k, v = x[0].float(), x[1].float(), x[2].float()
+    s = (q @ k.transpose(-1, -2)) * sm_scale + neg[:, None, None, :]
+    if fast:
+        p = torch.exp(s - s.amax(-1, keepdim=True))
+        o = (p.to(cdt).float() @ v) / p.sum(-1, keepdim=True)
+    else:
+        o = torch.softmax(s, dim=-1).to(cdt).float() @ v
+    return o.to(cdt).permute(0, 2, 1, 3).reshape(b, l, d)
+
+
+def token_logits(x, weight, bias):
+    """Eval token-policy logits (B, L, 2): ``x @ k`` accumulated in f32 and
+    rounded to x's dtype BEFORE the bias add, the bias added in that dtype
+    (`infer/fused_vit.py:224-225`, `vit_block.py:589-591`). A bf16 tie must
+    decide as it does there."""
+    return (x.float() @ weight.float().t()).to(x.dtype) + bias.to(x.dtype)
+
+
+def token_gate(x, weight, bias):
+    """0/1 f32 keep gate (B, L): ``logit0 >= logit1``, class token pinned."""
+    tl = token_logits(x, weight, bias)
+    gate = (tl[..., 0] >= tl[..., 1]).float()
+    gate[:, 0] = 1.0
+    return gate
+
+
+def _layer_plain(x, kmask, rmask, p, num_heads, ln_eps, fast_math):
+    """One layer on (B, L, D) x; ``kmask`` (B, L), ``rmask`` (B, L, 1) f32.
+    Rounding points: `vit_block.py:421-442`."""
+    cdt = x.dtype
+    ln = layer_norm_onepass if fast_math else layer_norm
+    gelu = gelu_tanh if fast_math else gelu_exact
+    neg = (1.0 - kmask) * NEG
+    h1 = ln(x, p["ln1"]["weight"], p["ln1"]["bias"], ln_eps).to(cdt)
+    qkv = _mm(h1, p["qkv"]["weight"], p["qkv"]["bias"]).to(cdt)
+    attn = attention(qkv, neg, num_heads, (x.shape[-1] // num_heads) ** -0.5,
+                     fast=fast_math)
+    proj = _mm(attn, p["proj"]["weight"], p["proj"]["bias"])
+    x2 = x.float() + proj * rmask
+    # LN2's input is rounded BEFORE the LayerNorm (`vit_block.py:436`)
+    h2 = ln(x2.to(cdt), p["ln2"]["weight"], p["ln2"]["bias"], ln_eps).to(cdt)
+    u = gelu(_mm(h2, p["fc1"]["weight"], p["fc1"]["bias"])).to(cdt)
+    y = _mm(u, p["fc2"]["weight"], p["fc2"]["bias"])
+    return (x2 + y * rmask).to(cdt)
+
+
+def fused_vit_block_reference(x, key_mask, row_mask, params, *,
+                              num_heads: int, ln_eps: float = 1e-6,
+                              fast_math: bool = False):
+    """Plain PyTorch version of `fused_vit_block`, on any device."""
+    b, l, _ = x.shape
+    return _layer_plain(x, key_mask.reshape(b, l).float(),
+                        row_mask.reshape(b, l, 1).float(), params,
+                        num_heads, ln_eps, fast_math)
+
+
+def fused_vit_segment_reference(x, token_mask, params_list, *,
+                                num_heads: int, ln_eps: float = 1e-6,
+                                fast_math: bool = False):
+    """Plain PyTorch version of `fused_vit_segment`, on any device."""
+    mask = token_mask.float()
+    for p in params_list:
+        if "token_policy" in p:
+            tp = p["token_policy"]
+            mask = mask * token_gate(x, tp["weight"], tp["bias"])
+        x = _layer_plain(x, mask, mask[..., None], p, num_heads, ln_eps,
+                         fast_math)
+    return x, mask
+
+
+# --- kernels -----------------------------------------------------------------
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _check_cuda(x, masks, params_list, num_heads):
+    """Raises on what the kernels do not take: they read raw pointers, so
+    dtype, device, shape and contiguity are checked here."""
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"the CUDA block kernels take bf16, got x {x.dtype}")
+    if x.dim() != 3 or not x.is_contiguous():
+        raise ValueError("x must be a contiguous (B, L, D) tensor")
+    b, l, d = x.shape
+    if d != num_heads * DH:
+        raise ValueError(f"the attention kernel takes heads of {DH}: "
+                         f"D={d}, num_heads={num_heads}")
+    if d > MAX_DIM or l > MAX_LEN:
+        raise ValueError(f"kernel limits: D <= {MAX_DIM}, L <= {MAX_LEN}; "
+                         f"got D={d}, L={l}")
+    for m in masks:
+        if m.device != x.device or m.numel() != b * l:
+            raise ValueError(f"masks must hold B*L={b * l} values on "
+                             f"{x.device}, got {tuple(m.shape)} on {m.device}")
+    for p in params_list:
+        hidden = p["fc1"]["weight"].shape[0]
+        if hidden % 32:
+            raise ValueError(f"the GEMM kernel needs K % 32 == 0: "
+                             f"hidden={hidden}")
+        weight_shapes = {"ln1": (d,), "ln2": (d,), "qkv": (3 * d, d),
+                         "proj": (d, d), "fc1": (hidden, d),
+                         "fc2": (d, hidden), "token_policy": (2, d)}
+        for name, sub in p.items():
+            want = {"weight": weight_shapes[name],
+                    "bias": weight_shapes[name][:1]}
+            for kind, t in sub.items():
+                if t.dtype != torch.bfloat16 or t.device != x.device:
+                    raise TypeError(f"{name}.{kind} must be bf16 on "
+                                    f"{x.device}, got {t.dtype} on {t.device}")
+                if tuple(t.shape) != want[kind] or not t.is_contiguous():
+                    raise ValueError(f"{name}.{kind} must be a contiguous "
+                                     f"{want[kind]}, got {tuple(t.shape)}")
+
+
+def _layer_cuda(lib, x, kmask, rmask, p, num_heads, ln_eps, fast_math,
+                policy=None):
+    """Seven launches: LN1 (+ the token gate, updating ``kmask`` in place;
+    B2 passes one buffer as both masks), qkv, attention, proj, LN2, fc1,
+    fc2. ``kmask`` and ``rmask`` are contiguous (B, L) f32."""
+    from laudnet_tpu_torch.ops._build import check
+
+    b, l, d = x.shape
+    m = b * l
+    hidden = p["fc1"]["weight"].shape[0]
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    fast = int(fast_math)
+    bf16 = dict(dtype=torch.bfloat16, device=x.device)
+
+    def ln(inp, is_f32, w, tp_w=None, tp_b=None, mask=None):
+        out = torch.empty((m, d), **bf16)
+        check(lib, lib.lt_layernorm(
+            _ptr(inp), is_f32, _ptr(out), _ptr(w["weight"]), _ptr(w["bias"]),
+            m, d, ln_eps, fast, _ptr(tp_w), _ptr(tp_b), _ptr(mask), l,
+            stream), "layernorm kernel")
+        return out
+
+    def gemm(a, w, n, k, epi, resid=None, out=None):
+        check(lib, lib.lt_gemm(
+            _ptr(a), _ptr(w["weight"]), _ptr(w["bias"]), m, n, k, epi,
+            _ptr(resid), _ptr(rmask), fast, _ptr(out), stream),
+            "gemm kernel")
+        return out
+
+    if policy is None:
+        h1 = ln(x, 0, p["ln1"])
+    else:
+        h1 = ln(x, 0, p["ln1"], policy["weight"], policy["bias"], kmask)
+    qkv = gemm(h1, p["qkv"], 3 * d, d, EPI_QKV,
+               out=torch.empty((m, 3 * d), **bf16))
+    attn = torch.empty((m, d), **bf16)
+    check(lib, lib.lt_attention(_ptr(qkv), _ptr(kmask), _ptr(attn), b, l,
+                                num_heads, DH ** -0.5, fast, stream),
+          "attention kernel")
+    x2 = gemm(attn, p["proj"], d, d, EPI_PROJ, resid=x,
+              out=torch.empty((m, d), dtype=torch.float32, device=x.device))
+    h2 = ln(x2, 1, p["ln2"])
+    u = gemm(h2, p["fc1"], hidden, d, EPI_FC1,
+             out=torch.empty((m, hidden), **bf16))
+    return gemm(u, p["fc2"], d, hidden, EPI_FC2, resid=x2,
+                out=torch.empty((b, l, d), **bf16))
+
+
+def _route(x):
+    if x.device.type == "cpu":
+        return False
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    return True
+
+
+def fused_vit_block(x, key_mask, row_mask, params, *, num_heads: int,
+                    ln_eps: float = 1e-6, fast_math: bool = False):
+    """One pre-norm transformer layer (B1). ``x``: (B, L, D); ``key_mask``:
+    (B, 1, L) 1/0 over keys; ``row_mask``: (B, L, 1) 1/0 over rows (both
+    branch outputs are multiplied by it). Returns (B, L, D) in x's dtype.
+    CPU tensors run `fused_vit_block_reference`; CUDA tensors run the
+    kernels (bf16)."""
+    if not _route(x):
+        return fused_vit_block_reference(x, key_mask, row_mask, params,
+                                         num_heads=num_heads, ln_eps=ln_eps,
+                                         fast_math=fast_math)
+    from laudnet_tpu_torch.ops._build import library
+
+    _check_cuda(x, (key_mask, row_mask), [params], num_heads)
+    b, l, _ = x.shape
+    kmask = key_mask.reshape(b, l).float().contiguous()
+    rmask = row_mask.reshape(b, l).float().contiguous()
+    out = _layer_cuda(library(), x, kmask, rmask, params, num_heads, ln_eps,
+                      fast_math)
+    fused_vit_block.launches += 1
+    return out
+
+
+fused_vit_block.launches = 0
+
+
+def fused_vit_segment(x, token_mask, params_list, *, num_heads: int,
+                      ln_eps: float = 1e-6, fast_math: bool = False):
+    """A run of layers between gather points (B2). ``token_mask``: (B, L)
+    composed 0/1 gate state at segment entry. A layer carrying
+    ``token_policy`` computes its eval gate from its entry x (``logit0 >=
+    logit1`` on bf16-rounded logits, class token pinned) and composes it
+    into the running mask before its attention. Returns ``(out,
+    token_mask_out)``. On CUDA each layer's gate is fused into its LN1
+    launch; x is rounded to x's dtype after every layer
+    (`vit_block.py:617`)."""
+    if not _route(x):
+        return fused_vit_segment_reference(x, token_mask, params_list,
+                                           num_heads=num_heads,
+                                           ln_eps=ln_eps,
+                                           fast_math=fast_math)
+    from laudnet_tpu_torch.ops._build import library
+
+    _check_cuda(x, (token_mask,), params_list, num_heads)
+    lib = library()
+    mask = token_mask.to(torch.float32, copy=True).contiguous()
+    for p in params_list:
+        x = _layer_cuda(lib, x, mask, mask, p, num_heads, ln_eps, fast_math,
+                        policy=p.get("token_policy"))
+    fused_vit_segment.launches += 1
+    return x, mask
+
+
+fused_vit_segment.launches = 0
