@@ -7,7 +7,17 @@ is set, or it raises. Conversions:
 * Dense ``kernel`` (in, out) -> Linear ``weight`` (out, in);
 * Conv ``kernel`` HWIO -> Conv2d ``weight`` OIHW;
 * LayerNorm ``scale``/``bias`` -> ``weight``/``bias``;
-* ``cls_token``, ``pos_embed`` and biases as they are.
+* ``cls_token``, ``pos_embed`` and biases as they are;
+* the ``t2t_stem`` subtree (``attn1``/``attn2``: ``norm1``, ``kqv``,
+  ``proj``, ``norm2``, ``fc1``, ``fc2``, and ``project``) by the same
+  rules. A performer's fixed feature matrix ``w`` (m, d) is copied as it
+  is into a ``requires_grad=False`` parameter, never re-drawn. ``project``
+  stays a Linear over (ki, kj, c)-ordered patch rows;
+  `models/t2t.py::t2t_stem_conv_apply` reshapes it to a convolution.
+
+``linear_impl='int8'`` models load the same float tree: `QuantDense` keeps
+``nn.Linear``'s parameter names, and int8 weights are derived from the
+loaded floats, never carried across.
 
 Flax names the blocks ``block_{i}``; the port holds them in
 ``blocks.{i}``.

@@ -1,14 +1,16 @@
-"""Fused ViT serving engine: patchify, then per layer the eval token gate
-and fixed-capacity gather at block entry, the block kernels, and the
-final LayerNorm and class head (counterpart of
-`laudnet_tpu/infer/fused_vit.py`).
+"""Fused ViT serving engine: the token prologue (conv patchify or the T2T
+performer stem), then per layer the eval token gate and fixed-capacity
+gather at block entry, the block kernels, and the final LayerNorm and
+class head (counterpart of `laudnet_tpu/infer/fused_vit.py`).
 
 The runs of layers between gathers go through one `fused_vit_segment`
 (B2) each on the token-selection path, or one `fused_vit_block` (B1) per
-layer on the dense path. The patch-embed convolution, the token-policy
-product and the head product stay stock PyTorch, as the JAX engine leaves
-them to XLA. The engine reads its weights from a `models.laud_vit.LAUDViT`
-(the single source of truth) and computes in that model's dtype.
+layer on the dense path; with ``head_gating`` or ``int8`` every layer is
+one `fused_vit_block` or `fused_vit_block_int8` (B6). The prologue, the
+policy products and the head product stay stock PyTorch, as the JAX engine
+leaves them to XLA. The engine reads its weights from a
+`models.laud_vit.LAUDViT` (the single source of truth) and computes in
+that model's dtype.
 """
 
 from __future__ import annotations
@@ -18,9 +20,12 @@ from typing import Optional, Sequence
 import torch
 import torch.nn.functional as F
 
+from laudnet_tpu_torch.models.t2t import t2t_stem_conv_apply
 from laudnet_tpu_torch.ops.vit_block import (
-    fused_vit_block, fused_vit_block_reference, fused_vit_segment,
-    fused_vit_segment_reference, layer_norm, token_logits)
+    fused_vit_block, fused_vit_block_int8, fused_vit_block_int8_reference,
+    fused_vit_block_reference, fused_vit_segment,
+    fused_vit_segment_reference, layer_norm, quantize_block_params,
+    token_logits)
 
 
 def _ln(x, weight, bias):
@@ -29,18 +34,22 @@ def _ln(x, weight, bias):
 
 
 def _patchify(model, x):
-    """Patch embed, class-token concat and position embed on NHWC images.
-    The bias is added after the convolution and the position embedding
-    after the concat, each in the compute dtype, as the JAX prologue does.
-    Returns ``(x, n)`` with x of shape (B, n+1, D)."""
-    pe = model.patch_embed
-    dt = pe.weight.dtype
+    """The token prologue on NHWC images: patch embed (or, for
+    ``stem='t2t'``, the conv-folded performer stem, which is dense and
+    never gated), class-token concat and position embed. The bias is added
+    after the convolution and the position embedding after the concat,
+    each in the compute dtype, as the JAX prologue does. Returns
+    ``(x, n)`` with x of shape (B, n+1, D)."""
+    dt = model.cls_token.dtype
     b = x.shape[0]
-    y = F.conv2d(x.to(dt).permute(0, 3, 1, 2), pe.weight,
-                 stride=model.patch_size)
-    y = y + pe.bias[:, None, None]
-    n = y.shape[2] * y.shape[3]
-    y = y.flatten(2).transpose(1, 2)
+    if model.stem == "t2t":
+        y = t2t_stem_conv_apply(model.t2t_stem, x.to(dt))
+    else:
+        pe = model.patch_embed
+        y = F.conv2d(x.to(dt).permute(0, 3, 1, 2), pe.weight,
+                     stride=model.patch_size)
+        y = (y + pe.bias[:, None, None]).flatten(2).transpose(1, 2)
+    n = y.shape[1]
     cls = model.cls_token.to(dt).expand(b, 1, -1)
     return torch.cat([cls, y], dim=1) + model.pos_embed.to(dt), n
 
@@ -113,34 +122,46 @@ def build_fused_vit(model, *,
     int caps the layers per segment and engages on dense paths too; False
     runs one `fused_vit_block` per layer. ``fast_math`` (the serving
     default) uses the kernels' fast forms. ``plain`` runs the plain
-    PyTorch versions of B1/B2 on any device: the kernels' oracle.
+    PyTorch versions of B1/B2/B6 on any device: the kernels' oracle.
     After a call, ``forward.token_counts`` holds the token count each
     layer ran at.
 
-    Only the token-gating and dense paths are ported: the engine's output
-    equals ``LAUDViT`` eval for models without head or layer gates (a
-    model that carries them is served with those gates ignored, as the
-    JAX engine does without ``head_gating``)."""
-    if head_gating:
-        raise NotImplementedError(
-            "head_gating belongs to a later slice of the port")
+    ``head_gating`` applies the model's eval per-head gates
+    (``head_policy`` on the class token at block entry, ``on >= off``)
+    inside the block kernel. ``int8`` serves the W8A8 block
+    (`fused_vit_block_int8`): the four products of each layer are
+    quantised per output channel here, once, from the model's weights as
+    they are at build time; it is inexact, and callers report agreement
+    with the float engine. Both run one kernel per layer (no segments) and
+    ignore ``fast_math`` where the W8A8 block has no fast forms. A model
+    with ``stem='t2t'`` gets the conv-folded performer stem as its
+    prologue. Odd head counts (T2T's 7) need nothing: the attention kernel
+    takes any number of heads of 64, so the zero fake head the TPU engine
+    pads in stays behind, on the int8 path too. That head's columns
+    quantise to 0 and its zero output does not move a row's abs-max, so
+    the int8 codes are the same without it.
+
+    Layer gates are not served: the engine's output equals ``LAUDViT``
+    eval for models without layer gates (and, without ``head_gating``,
+    without head gates; a model that carries them is served with those
+    gates ignored, as the JAX engine does)."""
     if int8:
-        raise NotImplementedError(
-            "int8 (kernel B6) belongs to the int8 slice of the port")
-    if model.stem != "patch":
-        raise NotImplementedError(
-            "stem='t2t' belongs to the T2T-ViT-19 slice of the port")
-    block_fn = fused_vit_block_reference if plain else fused_vit_block
+        block_fn = (fused_vit_block_int8_reference if plain
+                    else fused_vit_block_int8)
+    else:
+        block_fn = fused_vit_block_reference if plain else fused_vit_block
     segment_fn = fused_vit_segment_reference if plain else fused_vit_segment
     depth, num_heads = model.depth, model.num_heads
     blocks = list(model.blocks)
     select = token_capacity is not None
     has_policy = [blk.token_policy is not None for blk in blocks]
+    qblocks = ([quantize_block_params(block_params(blk)) for blk in blocks]
+               if int8 else None)
 
     # Default True engages only on selection paths; an int engages
-    # everywhere. Segments are capped at 5 layers and at ~72 MiB of
-    # weights, the JAX engine's plan.
-    seg_ok = (bool(segments) and depth > 0
+    # everywhere; never with head gates or int8. Segments are capped at 5
+    # layers and at ~72 MiB of weights, the JAX engine's plan.
+    seg_ok = (bool(segments) and not head_gating and not int8 and depth > 0
               and (select or segments is not True))
     if seg_ok:
         blk0 = blocks[0]
@@ -197,10 +218,18 @@ def build_fused_vit(model, *,
             for i in range(depth):
                 x, token_mask, cur = entry_policy(i, x, token_mask, cur)
                 counts.append(cur)
+                kw = {} if int8 else {"fast_math": fast_math}
+                if head_gating and blocks[i].head_policy is not None:
+                    # eval head gate on the class token, which selection
+                    # pins at index 0; logits round as the token policy's
+                    hp = blocks[i].head_policy
+                    hl = token_logits(x[:, 0], hp.weight, hp.bias)
+                    hl = hl.reshape(b, 2, num_heads)
+                    kw["head_gate"] = (hl[:, 0] >= hl[:, 1]).float()
                 x = block_fn(x.contiguous(), token_mask.reshape(b, 1, cur),
                              token_mask.reshape(b, cur, 1),
-                             block_params(blocks[i]), num_heads=num_heads,
-                             fast_math=fast_math)
+                             qblocks[i] if int8 else block_params(blocks[i]),
+                             num_heads=num_heads, **kw)
         x = _ln(x, model.norm.weight, model.norm.bias)
         return x[:, 0] @ model.head.weight.t().to(x.dtype) \
             + model.head.bias.to(x.dtype)

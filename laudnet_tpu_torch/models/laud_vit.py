@@ -10,8 +10,16 @@ follows the simulator's cost model in the JAX package exactly, quirks
 included.
 
 Images enter NHWC (B, H, W, 3) as in the JAX package; token streams are
-(B, L, D) and masks (B, L). Training, the fused attention kernel, the T2T
-stem and the int8 linears belong to later slices and raise.
+(B, L, D) and masks (B, L). ``stem='t2t'`` swaps the conv patchifier for
+the tokens-to-token performer stem (`models/t2t.py`), ``attn_impl='fused'``
+runs the attention through the fused kernel (`ops/vit_attention.py`) and
+``linear_impl='int8'`` the four body products as W8A8
+(`ops/quant.py::QuantDense`), all at eval. Training (Gumbel gates, the
+attention backward, ``linear_impl='int8_qat'``) belongs to the training
+slice and raises.
+
+Constructors build on the card unless given a ``device``
+(`laudnet_tpu_torch/device.py`).
 """
 
 from __future__ import annotations
@@ -24,8 +32,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from laudnet_tpu_torch.device import resolve_device
+from laudnet_tpu_torch.models.t2t import (T2TStem, TokenPerformer,
+                                          t2t_stem_flops)
 from laudnet_tpu_torch.ops.gating import binary_gate
-from laudnet_tpu_torch.ops.vit_attention import reference_vit_attention
+from laudnet_tpu_torch.ops.quant import QuantDense
+from laudnet_tpu_torch.ops.vit_attention import (
+    fused_vit_attention, reference_vit_attention)
 
 LN_EPS = 1e-6  # flax's LayerNorm default (torch's is 1e-5)
 
@@ -96,28 +109,47 @@ def _open_bias_(bias: torch.Tensor, split: int) -> None:
         bias[:split] = 2.0
 
 
+def _check_impls(attn_impl: str, linear_impl: str) -> None:
+    if attn_impl not in ("reference", "fused"):
+        raise ValueError(f"attn_impl must be 'reference' or 'fused', got "
+                         f"{attn_impl!r}")
+    if linear_impl == "int8_qat":
+        raise NotImplementedError(
+            "linear_impl='int8_qat' (fake-quant training) belongs to the "
+            "training slice of the port")
+    if linear_impl not in ("dense", "int8"):
+        raise ValueError(f"linear_impl must be 'dense' or 'int8', got "
+                         f"{linear_impl!r}")
+
+
 class LAUDViTBlock(nn.Module):
     """Pre-norm transformer block with the three gating paradigms."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0, *,
                  token_skip: bool = True, head_skip: bool = True,
-                 layer_skip: bool = True, device=None, dtype=None):
+                 layer_skip: bool = True, attn_impl: str = "reference",
+                 linear_impl: str = "dense", device=None, dtype=None):
         super().__init__()
-        kw = dict(device=device, dtype=dtype)
+        _check_impls(attn_impl, linear_impl)
+        kw = dict(device=resolve_device(device), dtype=dtype)
         self.dim, self.num_heads = dim, num_heads
         self.hidden = int(dim * mlp_ratio)
         self.token_skip, self.head_skip = token_skip, head_skip
         self.layer_skip = layer_skip
+        self.attn_impl = attn_impl
+        # body products: nn.Linear, or the checkpoint-compatible W8A8
+        # QuantDense at eval; policy heads and norms stay float
+        dense = QuantDense if linear_impl == "int8" else nn.Linear
         self.layer_policy = nn.Linear(dim, 4, **kw) if layer_skip else None
         self.head_policy = (nn.Linear(dim, 2 * num_heads, **kw)
                             if head_skip else None)
         self.token_policy = nn.Linear(dim, 2, **kw) if token_skip else None
         self.norm1 = nn.LayerNorm(dim, eps=LN_EPS, **kw)
-        self.qkv = nn.Linear(dim, 3 * dim, **kw)
-        self.proj = nn.Linear(dim, dim, **kw)
+        self.qkv = dense(dim, 3 * dim, **kw)
+        self.proj = dense(dim, dim, **kw)
         self.norm2 = nn.LayerNorm(dim, eps=LN_EPS, **kw)
-        self.fc1 = nn.Linear(dim, self.hidden, **kw)
-        self.fc2 = nn.Linear(self.hidden, dim, **kw)
+        self.fc1 = dense(dim, self.hidden, **kw)
+        self.fc2 = dense(self.hidden, dim, **kw)
 
     def forward(self, x, token_mask, *, capacity: Optional[int] = None,
                 book_len: Optional[int] = None):
@@ -175,8 +207,9 @@ class LAUDViTBlock(nn.Module):
             l = capacity
 
         y = self.norm1(x)
-        out = reference_vit_attention(self.qkv(y), token_mask, head_mask, h,
-                                      (d // h) ** -0.5)
+        attend = (fused_vit_attention if self.attn_impl == "fused"
+                  else reference_vit_attention)
+        out = attend(self.qkv(y), token_mask, head_mask, h, (d // h) ** -0.5)
         out = self.proj(out) * token_mask.to(x.dtype)[:, :, None]
         if attn_gate is not None:
             out = out * attn_gate.to(out.dtype)[:, None, None]
@@ -206,7 +239,8 @@ class LAUDViT(nn.Module):
     after block ``i``'s token gate, surviving tokens are gathered down to
     ``int(capacity[i] * (N+1))`` so that block's attention and MLP and
     every later one run at the reduced length. ``img_size`` fixes the
-    position-embedding length (the JAX module infers it at init).
+    position-embedding length (the JAX module infers it at init); the T2T
+    stem's geometry is fixed at 224 (14 x 14 tokens).
     Parameters are drawn from ``generator`` (an explicit
     ``torch.Generator``) when given, else left to the caller (e.g.
     `convert.from_jax.load_flax_variables`)."""
@@ -221,33 +255,32 @@ class LAUDViT(nn.Module):
                  in_chans: int = 3, device=None, dtype=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if stem != "patch":
-            raise NotImplementedError(
-                "stem='t2t' belongs to the T2T-ViT-19 slice of the port")
-        if attn_impl != "reference":
-            raise NotImplementedError(
-                "attn_impl='fused' (kernels B4/B5) belongs to the training "
-                "slice of the port")
-        if linear_impl != "dense":
-            raise NotImplementedError(
-                "linear_impl='int8*' (kernel B6) belongs to the int8 slice "
-                "of the port")
-        kw = dict(device=device, dtype=dtype)
+        if stem not in ("patch", "t2t"):
+            raise ValueError(f"stem must be 'patch' or 't2t', got {stem!r}")
+        _check_impls(attn_impl, linear_impl)
+        kw = dict(device=resolve_device(device), dtype=dtype)
         self.depth, self.dim, self.num_heads = depth, dim, num_heads
         self.mlp_ratio, self.patch_size = mlp_ratio, patch_size
         self.num_classes, self.stem = num_classes, stem
         self.token_skip, self.head_skip = token_skip, head_skip
         self.layer_skip = layer_skip
         self.token_capacity = token_capacity
-        self.num_patches = (img_size // patch_size) ** 2
-        self.patch_embed = nn.Conv2d(in_chans, dim, patch_size,
-                                     stride=patch_size, **kw)
+        self.attn_impl, self.linear_impl = attn_impl, linear_impl
+        if stem == "t2t":
+            # the stem reduces 4 * 2 * 2 = 16x whatever patch_size says
+            self.num_patches = (img_size // 16) ** 2
+            self.t2t_stem = T2TStem(embed_dim=dim, in_chans=in_chans, **kw)
+        else:
+            self.num_patches = (img_size // patch_size) ** 2
+            self.patch_embed = nn.Conv2d(in_chans, dim, patch_size,
+                                         stride=patch_size, **kw)
         self.cls_token = nn.Parameter(torch.empty(1, 1, dim, **kw))
         self.pos_embed = nn.Parameter(
             torch.empty(1, self.num_patches + 1, dim, **kw))
         self.blocks = nn.ModuleList(
             LAUDViTBlock(dim, num_heads, mlp_ratio, token_skip=token_skip,
-                         head_skip=head_skip, layer_skip=layer_skip, **kw)
+                         head_skip=head_skip, layer_skip=layer_skip,
+                         attn_impl=attn_impl, linear_impl=linear_impl, **kw)
             for _ in range(depth))
         self.norm = nn.LayerNorm(dim, eps=LN_EPS, **kw)
         self.head = nn.Linear(dim, num_classes, **kw)
@@ -258,7 +291,8 @@ class LAUDViT(nn.Module):
     def init_weights(self, generator: torch.Generator) -> None:
         """Flax's defaults: lecun-normal kernels (truncated, std
         1/sqrt(fan_in)), zero biases, unit LayerNorms, truncated-normal
-        0.02 cls/pos embeddings, and policy gates open."""
+        0.02 cls/pos embeddings, policy gates open, and the performers'
+        fixed features orthonormal rows times sqrt(m)."""
         def lecun_(w, fan_in):
             nn.init.trunc_normal_(w, std=1.0 / math.sqrt(fan_in),
                                   a=-2.0 / math.sqrt(fan_in),
@@ -275,6 +309,10 @@ class LAUDViT(nn.Module):
             elif isinstance(m, nn.LayerNorm):
                 nn.init.ones_(m.weight)
                 nn.init.zeros_(m.bias)
+            elif isinstance(m, TokenPerformer):
+                g = torch.empty(m.dim, m.dim, device=m.w.device)
+                q, _ = torch.linalg.qr(g.normal_(generator=generator))
+                m.w.copy_(q[:m.m] * m.m ** 0.5)
         for p in (self.cls_token, self.pos_embed):
             nn.init.trunc_normal_(p, std=0.02, a=-0.04, b=0.04,
                                   generator=generator)
@@ -292,11 +330,18 @@ class LAUDViT(nn.Module):
             raise NotImplementedError(
                 "training=True belongs to the training slice of the port")
         b, _, _, c = x.shape
-        x = self.patch_embed(x.permute(0, 3, 1, 2))
-        n = x.shape[2] * x.shape[3]
-        x = x.flatten(2).transpose(1, 2)
-        flops = torch.tensor(float(c * self.dim * self.patch_size ** 2 * n),
-                             dtype=torch.float32)
+        if self.stem == "t2t":
+            x = self.t2t_stem(x)
+            n = x.shape[1]
+            flops = torch.tensor(t2t_stem_flops(self.dim),
+                                 dtype=torch.float32)
+        else:
+            x = self.patch_embed(x.permute(0, 3, 1, 2))
+            n = x.shape[2] * x.shape[3]
+            x = x.flatten(2).transpose(1, 2)
+            flops = torch.tensor(
+                float(c * self.dim * self.patch_size ** 2 * n),
+                dtype=torch.float32)
         x = torch.cat([self.cls_token.expand(b, -1, -1), x], dim=1)
         x = x + self.pos_embed
 
@@ -342,8 +387,12 @@ def vit_dense_flops(model: LAUDViT, input_size: int = 224,
     d, h = model.dim, model.num_heads
     dh = d // h
     hidden = int(d * model.mlp_ratio)
-    n = (input_size // model.patch_size) ** 2
-    stem = float(in_chans * d * model.patch_size ** 2 * n)
+    if model.stem == "t2t":
+        stem = float(t2t_stem_flops(d))
+        n = (input_size // 16) ** 2  # the T2T stem reduces 4 * 2 * 2 = 16x
+    else:
+        n = (input_size // model.patch_size) ** 2
+        stem = float(in_chans * d * model.patch_size ** 2 * n)
     l = n + 1
     policy = vit_policy_flops(l, d, h, token_skip=model.token_skip,
                               head_skip=model.head_skip,
@@ -364,3 +413,15 @@ def laud_deit_tiny(**kwargs) -> LAUDViT:
 
 def laud_deit_base(**kwargs) -> LAUDViT:
     return LAUDViT(depth=12, dim=768, num_heads=12, mlp_ratio=4.0, **kwargs)
+
+
+def laud_t2t_vit_19_backbone(**kwargs) -> LAUDViT:
+    """The T2T-ViT-19 trunk geometry (14 blocks, dim 448, 7 heads, MLP
+    ratio 3) behind the conv patchifier."""
+    return LAUDViT(depth=14, dim=448, num_heads=7, mlp_ratio=3.0, **kwargs)
+
+
+def laud_t2t_vit_19(**kwargs) -> LAUDViT:
+    """Full LAUD-T2T-ViT-19: tokens-to-token performer stem + gated trunk."""
+    return LAUDViT(depth=14, dim=448, num_heads=7, mlp_ratio=3.0,
+                   stem="t2t", **kwargs)

@@ -33,8 +33,14 @@ _SIGNATURES = {
     "lt_layernorm": (_P, _I, _P, _P, _P, _I, _I, _F, _I, _P, _P, _P, _I, _P),
     # a, w, bias, m, n, k, epilogue, resid, rmask, fast_gelu, out, stream
     "lt_gemm": (_P, _P, _P, _I, _I, _I, _I, _P, _P, _I, _P, _P),
-    # qkv, key_mask, out, b, l, num_heads, sm_scale, fast, stream
-    "lt_attention": (_P, _P, _P, _I, _I, _I, _F, _I, _P),
+    # a, xs, w, ws, bias, m, n, k, epilogue, resid, rmask, out, stream
+    "lt_gemm_s8": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P),
+    # qkv, key_mask, head_gate, out, b, l, num_heads, sm_scale, fast, stream
+    "lt_attention": (_P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
+    # x, x_is_f32, q, scale, w, b, rows, d, eps, stream
+    "lt_layernorm_quant": (_P, _I, _P, _P, _P, _P, _I, _I, _F, _P),
+    # x, x_is_f32, q, scale, rows, d, stream
+    "lt_rowquant": (_P, _I, _P, _P, _I, _I, _P),
 }
 
 

@@ -1,13 +1,16 @@
-"""Fused pre-norm ViT block (B1) and layer segment (B2).
+"""Fused pre-norm ViT block (B1), layer segment (B2) and W8A8 block (B6).
 
-Counterparts of `laudnet_tpu/ops/pallas/vit_block.py::fused_vit_block` and
-`::fused_vit_segment`. One layer computes
+Counterparts of `laudnet_tpu/ops/pallas/vit_block.py::fused_vit_block`,
+`::fused_vit_segment` and `::fused_vit_block_int8`. One layer computes
 
     x2  = x + proj(MHA(LN1(x))) * row_mask
     out = x2 + fc2(GELU(fc1(LN2(x2)))) * row_mask
 
-with an additive -1e9 key mask in the attention. ``fast_math`` swaps in
-one-pass LayerNorm, tanh GELU and softmax normalised after P.V.
+with an additive -1e9 key mask in the attention and an optional (B, H) 0/1
+head gate on each head's attention output. ``fast_math`` swaps in one-pass
+LayerNorm, tanh GELU and softmax normalised after P.V. The W8A8 block runs
+the four weight products on per-row s8 activations and per-channel s8
+weights with exact integer sums; everything else stays float.
 
 Each wrapper takes the plain PyTorch version below only for tensors on the
 CPU. For CUDA tensors it launches the hand-written kernels of
@@ -17,16 +20,23 @@ wrapper counts its kernel launches in ``<wrapper>.launches``.
 A layer's parameters are a dict in torch.nn.Linear layout:
 ``{"ln1", "qkv", "proj", "ln2", "fc1", "fc2"}``, each ``{"weight",
 "bias"}`` (Linear weights are (out, in)); a segment layer may also carry
-``"token_policy"`` {weight (2, D), bias (2,)}.
+``"token_policy"`` {weight (2, D), bias (2,)}. The W8A8 block's products
+are ``{"weight_q": int8 (out, in), "scale": f32 (out,), "bias"}``
+(`quantize_block_params`). The TPU kernels take the head gate expanded to
+feature lanes, (B, 1, D); that is a layout of theirs, and the port keeps
+(B, H).
 """
 
 from __future__ import annotations
 
 import torch
 
+from laudnet_tpu_torch.ops.quant import int8_linear, quantize_weight
+
 NEG = -1e9
 DH = 64            # head width the attention kernel takes
 MAX_DIM = 1024     # LayerNorm kernel: 32 values per lane
+MAX_HIDDEN_INT8 = 4096  # row-quantise kernel: 128 values per lane
 MAX_LEN = 256      # attention kernel: a warp's score rows in registers
 EPI_QKV, EPI_PROJ, EPI_FC1, EPI_FC2 = 0, 1, 2, 3  # csrc/vit_block.cu
 
@@ -68,12 +78,14 @@ def _mm(a, weight, bias):
     return a.float() @ weight.float().t() + bias.float()
 
 
-def attention(qkv, neg, num_heads, sm_scale, fast=False):
+def attention(qkv, neg, num_heads, sm_scale, fast=False, head_gate=None):
     """Masked MHA over packed (B, L, 3D) qkv in the compute dtype, heads
     merged, rounded to that dtype per head (`vit_block.py::_pair_attention`
     without the TPU lane pairing). ``neg``: (B, L) additive key mask.
     Exact normalises p before P.V; ``fast`` uses p = exp(s - max) rounded
-    for P.V and divides by the unrounded f32 row sum afterwards."""
+    for P.V and divides by the unrounded f32 row sum afterwards.
+    ``head_gate``: (B, H) 0/1, multiplied into the rounded output in the
+    compute dtype (`vit_block.py:428-430`)."""
     cdt = qkv.dtype
     b, l, d3 = qkv.shape
     d = d3 // 3
@@ -86,7 +98,10 @@ def attention(qkv, neg, num_heads, sm_scale, fast=False):
         o = (p.to(cdt).float() @ v) / p.sum(-1, keepdim=True)
     else:
         o = torch.softmax(s, dim=-1).to(cdt).float() @ v
-    return o.to(cdt).permute(0, 2, 1, 3).reshape(b, l, d)
+    o = o.to(cdt)
+    if head_gate is not None:
+        o = o * head_gate.to(cdt)[:, :, None, None]
+    return o.permute(0, 2, 1, 3).reshape(b, l, d)
 
 
 def token_logits(x, weight, bias):
@@ -105,7 +120,8 @@ def token_gate(x, weight, bias):
     return gate
 
 
-def _layer_plain(x, kmask, rmask, p, num_heads, ln_eps, fast_math):
+def _layer_plain(x, kmask, rmask, p, num_heads, ln_eps, fast_math,
+                 head_gate=None):
     """One layer on (B, L, D) x; ``kmask`` (B, L), ``rmask`` (B, L, 1) f32.
     Rounding points: `vit_block.py:421-442`."""
     cdt = x.dtype
@@ -115,7 +131,7 @@ def _layer_plain(x, kmask, rmask, p, num_heads, ln_eps, fast_math):
     h1 = ln(x, p["ln1"]["weight"], p["ln1"]["bias"], ln_eps).to(cdt)
     qkv = _mm(h1, p["qkv"]["weight"], p["qkv"]["bias"]).to(cdt)
     attn = attention(qkv, neg, num_heads, (x.shape[-1] // num_heads) ** -0.5,
-                     fast=fast_math)
+                     fast=fast_math, head_gate=head_gate)
     proj = _mm(attn, p["proj"]["weight"], p["proj"]["bias"])
     x2 = x.float() + proj * rmask
     # LN2's input is rounded BEFORE the LayerNorm (`vit_block.py:436`)
@@ -126,13 +142,53 @@ def _layer_plain(x, kmask, rmask, p, num_heads, ln_eps, fast_math):
 
 
 def fused_vit_block_reference(x, key_mask, row_mask, params, *,
-                              num_heads: int, ln_eps: float = 1e-6,
-                              fast_math: bool = False):
+                              num_heads: int, head_gate=None,
+                              ln_eps: float = 1e-6, fast_math: bool = False):
     """Plain PyTorch version of `fused_vit_block`, on any device."""
     b, l, _ = x.shape
     return _layer_plain(x, key_mask.reshape(b, l).float(),
                         row_mask.reshape(b, l, 1).float(), params,
-                        num_heads, ln_eps, fast_math)
+                        num_heads, ln_eps, fast_math, head_gate=head_gate)
+
+
+def quantize_block_params(params: dict) -> dict:
+    """A layer's parameter dict with its four products quantised per
+    output channel (`ops/quant.py::quantize_weight`): the W8A8 block's
+    ``qparams``. LayerNorms, biases and a token policy stay as they are."""
+    q = dict(params)
+    for name in ("qkv", "proj", "fc1", "fc2"):
+        wq, ws = quantize_weight(params[name]["weight"])
+        q[name] = {"weight_q": wq, "scale": ws, "bias": params[name]["bias"]}
+    return q
+
+
+def fused_vit_block_int8_reference(x, key_mask, row_mask, qparams, *,
+                                   num_heads: int, head_gate=None,
+                                   ln_eps: float = 1e-6):
+    """Plain PyTorch version of `fused_vit_block_int8`, on any device, with
+    exact integer products. Where it rounds differently from
+    `fused_vit_block` (`vit_block.py:272-287`): LN1's output and x2 go
+    into the quantiser and LN2 as f32, unrounded; LayerNorm is two-pass
+    and GELU the erf form; GELU's f32 output is quantised from f32; the
+    proj input is the attention output in the compute dtype, upcast."""
+    cdt = x.dtype
+    b, l, d = x.shape
+    rmask = row_mask.reshape(b, l, 1).float()
+    neg = (1.0 - key_mask.reshape(b, l).float()) * NEG
+    p = qparams
+
+    def qmm(a, name):
+        return int8_linear(a, p[name]["weight_q"], p[name]["scale"],
+                           p[name]["bias"])
+
+    h1 = layer_norm(x, p["ln1"]["weight"], p["ln1"]["bias"], ln_eps)
+    qkv = qmm(h1, "qkv").to(cdt)
+    attn = attention(qkv, neg, num_heads, (d // num_heads) ** -0.5,
+                     head_gate=head_gate)
+    x2 = x.float() + qmm(attn.float(), "proj") * rmask
+    h2 = layer_norm(x2, p["ln2"]["weight"], p["ln2"]["bias"], ln_eps)
+    u = gelu_exact(qmm(h2, "fc1"))
+    return (x2 + qmm(u, "fc2") * rmask).to(cdt)
 
 
 def fused_vit_segment_reference(x, token_mask, params_list, *,
@@ -155,9 +211,11 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _check_cuda(x, masks, params_list, num_heads):
+def _check_cuda(x, masks, params_list, num_heads, head_gate=None,
+                int8=False):
     """Raises on what the kernels do not take: they read raw pointers, so
-    dtype, device, shape and contiguity are checked here."""
+    dtype, device, shape and contiguity are checked here. ``int8``: the
+    four products are W8A8 ones (``weight_q`` int8 codes, ``scale`` f32)."""
     if x.dtype != torch.bfloat16:
         raise TypeError(f"the CUDA block kernels take bf16, got x {x.dtype}")
     if x.dim() != 3 or not x.is_contiguous():
@@ -173,31 +231,56 @@ def _check_cuda(x, masks, params_list, num_heads):
         if m.device != x.device or m.numel() != b * l:
             raise ValueError(f"masks must hold B*L={b * l} values on "
                              f"{x.device}, got {tuple(m.shape)} on {m.device}")
+    if head_gate is not None and (
+            head_gate.device != x.device
+            or tuple(head_gate.shape) != (b, num_heads)):
+        raise ValueError(f"head_gate must be ({b}, {num_heads}) on "
+                         f"{x.device}, got {tuple(head_gate.shape)} on "
+                         f"{head_gate.device}")
+    dtypes = {"weight": torch.bfloat16, "bias": torch.bfloat16,
+              "weight_q": torch.int8, "scale": torch.float32}
+    kinds = {"weight_q", "scale", "bias"} if int8 else {"weight", "bias"}
+    step = 64 if int8 else 32  # values of K in one stage of the GEMM's ring
     for p in params_list:
-        hidden = p["fc1"]["weight"].shape[0]
-        if hidden % 32:
-            raise ValueError(f"the GEMM kernel needs K % 32 == 0: "
+        for name in ("qkv", "proj", "fc1", "fc2"):
+            if set(p[name]) != kinds:
+                raise TypeError(f"{name} must hold {sorted(kinds)}, got "
+                                f"{sorted(p[name])}")
+        hidden = p["fc1"]["weight_q" if int8 else "weight"].shape[0]
+        if hidden % step:
+            raise ValueError(f"the GEMM kernel needs K % {step} == 0: "
                              f"hidden={hidden}")
+        if int8 and hidden > MAX_HIDDEN_INT8:
+            raise ValueError(f"the row-quantise kernel takes hidden <= "
+                             f"{MAX_HIDDEN_INT8}, got {hidden}")
         weight_shapes = {"ln1": (d,), "ln2": (d,), "qkv": (3 * d, d),
                          "proj": (d, d), "fc1": (hidden, d),
                          "fc2": (d, hidden), "token_policy": (2, d)}
         for name, sub in p.items():
-            want = {"weight": weight_shapes[name],
-                    "bias": weight_shapes[name][:1]}
+            shape = weight_shapes[name]
+            want = {"weight": shape, "weight_q": shape, "bias": shape[:1],
+                    "scale": shape[:1]}
             for kind, t in sub.items():
-                if t.dtype != torch.bfloat16 or t.device != x.device:
-                    raise TypeError(f"{name}.{kind} must be bf16 on "
-                                    f"{x.device}, got {t.dtype} on {t.device}")
+                if t.dtype != dtypes[kind] or t.device != x.device:
+                    raise TypeError(f"{name}.{kind} must be {dtypes[kind]} "
+                                    f"on {x.device}, got {t.dtype} on "
+                                    f"{t.device}")
                 if tuple(t.shape) != want[kind] or not t.is_contiguous():
                     raise ValueError(f"{name}.{kind} must be a contiguous "
                                      f"{want[kind]}, got {tuple(t.shape)}")
 
 
+def _f32(t):
+    """A mask or gate as the contiguous f32 the kernels read (or None)."""
+    return None if t is None else t.float().contiguous()
+
+
 def _layer_cuda(lib, x, kmask, rmask, p, num_heads, ln_eps, fast_math,
-                policy=None):
+                policy=None, head_gate=None):
     """Seven launches: LN1 (+ the token gate, updating ``kmask`` in place;
     B2 passes one buffer as both masks), qkv, attention, proj, LN2, fc1,
-    fc2. ``kmask`` and ``rmask`` are contiguous (B, L) f32."""
+    fc2. ``kmask`` and ``rmask`` are contiguous (B, L) f32, ``head_gate``
+    contiguous (B, H) f32 or None."""
     from laudnet_tpu_torch.ops._build import check
 
     b, l, d = x.shape
@@ -229,9 +312,9 @@ def _layer_cuda(lib, x, kmask, rmask, p, num_heads, ln_eps, fast_math,
     qkv = gemm(h1, p["qkv"], 3 * d, d, EPI_QKV,
                out=torch.empty((m, 3 * d), **bf16))
     attn = torch.empty((m, d), **bf16)
-    check(lib, lib.lt_attention(_ptr(qkv), _ptr(kmask), _ptr(attn), b, l,
-                                num_heads, DH ** -0.5, fast, stream),
-          "attention kernel")
+    check(lib, lib.lt_attention(_ptr(qkv), _ptr(kmask), _ptr(head_gate),
+                                _ptr(attn), b, l, num_heads, DH ** -0.5,
+                                fast, stream), "attention kernel")
     x2 = gemm(attn, p["proj"], d, d, EPI_PROJ, resid=x,
               out=torch.empty((m, d), dtype=torch.float32, device=x.device))
     h2 = ln(x2, 1, p["ln2"])
@@ -239,6 +322,61 @@ def _layer_cuda(lib, x, kmask, rmask, p, num_heads, ln_eps, fast_math,
              out=torch.empty((m, hidden), **bf16))
     return gemm(u, p["fc2"], d, hidden, EPI_FC2, resid=x2,
                 out=torch.empty((b, l, d), **bf16))
+
+
+def _layer_int8_cuda(lib, x, kmask, rmask, p, num_heads, ln_eps,
+                     head_gate=None):
+    """Nine launches: LN1 + row quantise, s8 qkv, attention (exact form,
+    head gate), row quantise, s8 proj (+residual, f32 x2), LN2 + row
+    quantise (of the unrounded x2), s8 fc1 (+erf GELU, f32), row quantise,
+    s8 fc2 (+residual). Masks and gate as `_layer_cuda` takes them."""
+    from laudnet_tpu_torch.ops._build import check
+
+    b, l, d = x.shape
+    m = b * l
+    hidden = p["fc1"]["weight_q"].shape[0]
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    dev = x.device
+
+    def codes(k):
+        return (torch.empty((m, k), dtype=torch.int8, device=dev),
+                torch.empty((m,), dtype=torch.float32, device=dev))
+
+    def ln_quant(inp, is_f32, w):
+        q, qs = codes(d)
+        check(lib, lib.lt_layernorm_quant(
+            _ptr(inp), is_f32, _ptr(q), _ptr(qs), _ptr(w["weight"]),
+            _ptr(w["bias"]), m, d, ln_eps, stream),
+            "layernorm-quantise kernel")
+        return q, qs
+
+    def rowquant(inp, is_f32, k):
+        q, qs = codes(k)
+        check(lib, lib.lt_rowquant(_ptr(inp), is_f32, _ptr(q), _ptr(qs), m,
+                                   k, stream), "row-quantise kernel")
+        return q, qs
+
+    def gemm(a, w, n, k, epi, out, resid=None):
+        q, qs = a
+        check(lib, lib.lt_gemm_s8(
+            _ptr(q), _ptr(qs), _ptr(w["weight_q"]), _ptr(w["scale"]),
+            _ptr(w["bias"]), m, n, k, epi, _ptr(resid), _ptr(rmask),
+            _ptr(out), stream), "s8 gemm kernel")
+        return out
+
+    qkv = gemm(ln_quant(x, 0, p["ln1"]), p["qkv"], 3 * d, d, EPI_QKV,
+               torch.empty((m, 3 * d), dtype=torch.bfloat16, device=dev))
+    attn = torch.empty((m, d), dtype=torch.bfloat16, device=dev)
+    check(lib, lib.lt_attention(_ptr(qkv), _ptr(kmask), _ptr(head_gate),
+                                _ptr(attn), b, l, num_heads, DH ** -0.5, 0,
+                                stream), "attention kernel")
+    x2 = gemm(rowquant(attn, 0, d), p["proj"], d, d, EPI_PROJ,
+              torch.empty((m, d), dtype=torch.float32, device=dev), resid=x)
+    u = gemm(ln_quant(x2, 1, p["ln2"]), p["fc1"], hidden, d, EPI_FC1,
+             torch.empty((m, hidden), dtype=torch.float32, device=dev))
+    return gemm(rowquant(u, 1, hidden), p["fc2"], d, hidden, EPI_FC2,
+                torch.empty((b, l, d), dtype=torch.bfloat16, device=dev),
+                resid=x2)
 
 
 def _route(x):
@@ -250,29 +388,61 @@ def _route(x):
 
 
 def fused_vit_block(x, key_mask, row_mask, params, *, num_heads: int,
-                    ln_eps: float = 1e-6, fast_math: bool = False):
+                    head_gate=None, ln_eps: float = 1e-6,
+                    fast_math: bool = False):
     """One pre-norm transformer layer (B1). ``x``: (B, L, D); ``key_mask``:
     (B, 1, L) 1/0 over keys; ``row_mask``: (B, L, 1) 1/0 over rows (both
-    branch outputs are multiplied by it). Returns (B, L, D) in x's dtype.
-    CPU tensors run `fused_vit_block_reference`; CUDA tensors run the
-    kernels (bf16)."""
+    branch outputs are multiplied by it); ``head_gate``: optional (B, H)
+    0/1 gate on each head's attention output. Returns (B, L, D) in x's
+    dtype. CPU tensors run `fused_vit_block_reference`; CUDA tensors run
+    the kernels (bf16)."""
     if not _route(x):
         return fused_vit_block_reference(x, key_mask, row_mask, params,
-                                         num_heads=num_heads, ln_eps=ln_eps,
+                                         num_heads=num_heads,
+                                         head_gate=head_gate, ln_eps=ln_eps,
                                          fast_math=fast_math)
     from laudnet_tpu_torch.ops._build import library
 
-    _check_cuda(x, (key_mask, row_mask), [params], num_heads)
+    _check_cuda(x, (key_mask, row_mask), [params], num_heads, head_gate)
     b, l, _ = x.shape
-    kmask = key_mask.reshape(b, l).float().contiguous()
-    rmask = row_mask.reshape(b, l).float().contiguous()
-    out = _layer_cuda(library(), x, kmask, rmask, params, num_heads, ln_eps,
-                      fast_math)
+    out = _layer_cuda(library(), x, _f32(key_mask.reshape(b, l)),
+                      _f32(row_mask.reshape(b, l)), params, num_heads, ln_eps,
+                      fast_math, head_gate=_f32(head_gate))
     fused_vit_block.launches += 1
     return out
 
 
 fused_vit_block.launches = 0
+
+
+def fused_vit_block_int8(x, key_mask, row_mask, qparams, *, num_heads: int,
+                         head_gate=None, ln_eps: float = 1e-6):
+    """One W8A8 pre-norm transformer layer (B6): qkv, proj, fc1 and fc2 run
+    s8 x s8 -> s32 on the tensor cores with per-output-channel weight
+    scales (``qparams``, from `quantize_block_params`) and per-token
+    dynamic activation scales computed right before each product;
+    attention, LayerNorm, residuals and GELU stay float. Inexact against
+    `fused_vit_block` by the quantisation of the products' operands.
+    Arguments otherwise as `fused_vit_block`. CPU tensors run
+    `fused_vit_block_int8_reference`; CUDA tensors run the kernels
+    (bf16)."""
+    if not _route(x):
+        return fused_vit_block_int8_reference(
+            x, key_mask, row_mask, qparams, num_heads=num_heads,
+            head_gate=head_gate, ln_eps=ln_eps)
+    from laudnet_tpu_torch.ops._build import library
+
+    _check_cuda(x, (key_mask, row_mask), [qparams], num_heads, head_gate,
+                int8=True)
+    b, l, _ = x.shape
+    out = _layer_int8_cuda(library(), x, _f32(key_mask.reshape(b, l)),
+                           _f32(row_mask.reshape(b, l)), qparams, num_heads,
+                           ln_eps, head_gate=_f32(head_gate))
+    fused_vit_block_int8.launches += 1
+    return out
+
+
+fused_vit_block_int8.launches = 0
 
 
 def fused_vit_segment(x, token_mask, params_list, *, num_heads: int,

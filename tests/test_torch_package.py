@@ -10,7 +10,8 @@ from pathlib import Path
 import pytest
 import torch
 
-from laudnet_tpu_torch.ops import _build, vit_block
+from laudnet_tpu_torch import device as port_device
+from laudnet_tpu_torch.ops import _build, quant, vit_attention, vit_block
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -33,7 +34,11 @@ def test_every_module_imports_without_jax():
     proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 10  # package, 4 subpackages, modules
+    assert int(proc.stdout.strip()) >= 13  # package, 4 subpackages, modules
+    names = {p.relative_to(REPO).with_suffix("").as_posix().replace("/", ".")
+             for p in (REPO / "laudnet_tpu_torch").rglob("*.py")}
+    for new in ("device", "ops.quant", "ops.vit_attention", "models.t2t"):
+        assert f"laudnet_tpu_torch.{new}" in names
 
 
 def test_cpu_tensors_take_the_plain_version_and_count_nothing():
@@ -106,3 +111,108 @@ def test_library_path_is_keyed_by_the_sources():
     assert path.parent == _build.BUILD_DIR
     assert path == _build.library_path()
     assert re.fullmatch(r"laudnet_kernels_[0-9a-f]{16}\.so", path.name)
+
+
+def test_default_device_is_the_card():
+    """A port constructor called without ``device`` builds on CUDA; the
+    CPU is chosen only by asking for it. Read without building a model."""
+    assert port_device.resolve_device(None) == torch.device("cuda")
+    assert port_device.resolve_device() == torch.device("cuda")
+    assert port_device.resolve_device("cpu") == torch.device("cpu")
+    assert port_device.resolve_device(torch.device("meta")).type == "meta"
+
+
+def test_constructors_without_a_device_ask_for_cuda():
+    """On a machine without a card PyTorch's own error comes through: no
+    constructor catches it and falls back to the CPU."""
+    from laudnet_tpu_torch import models
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the constructors succeed")
+    for build in (lambda: models.LAUDViT(depth=1, dim=64, num_heads=1),
+                  lambda: models.LAUDViTBlock(64, 1),
+                  lambda: models.T2TStem(embed_dim=64),
+                  lambda: models.TokenPerformer(27, 64),
+                  lambda: quant.QuantDense(8, 8),
+                  models.laud_deit_tiny, models.laud_t2t_vit_19):
+        with pytest.raises((AssertionError, RuntimeError),
+                           match="(?i)cuda|nvidia"):
+            build()
+    assert models.laud_deit_tiny(device="cpu").head.weight.device.type == "cpu"
+
+
+def test_new_wrappers_count_nothing_on_the_cpu():
+    torch.set_num_threads(1)
+    g = torch.Generator().manual_seed(1)
+    b, l, d, h = 2, 5, 128, 2
+
+    def lin(o, i):
+        return {"weight": torch.randn(o, i, generator=g) * 0.05,
+                "bias": torch.zeros(o)}
+
+    p = {"ln1": {"weight": torch.ones(d), "bias": torch.zeros(d)},
+         "ln2": {"weight": torch.ones(d), "bias": torch.zeros(d)},
+         "qkv": lin(3 * d, d), "proj": lin(d, d), "fc1": lin(256, d),
+         "fc2": lin(d, 256)}
+    x = torch.randn(b, l, d, generator=g)
+    mask = torch.ones(b, l)
+    gate = torch.tensor([[1.0, 0.0], [0.0, 1.0]])
+    qp = vit_block.quantize_block_params(p)
+    assert qp["qkv"]["weight_q"].dtype == torch.int8
+    assert qp["ln1"] is p["ln1"]
+    out = vit_block.fused_vit_block_int8(
+        x, mask.reshape(b, 1, l), mask.reshape(b, l, 1), qp, num_heads=h,
+        head_gate=gate)
+    assert out.shape == x.shape and torch.isfinite(out).all()
+    gated = vit_block.fused_vit_block(
+        x, mask.reshape(b, 1, l), mask.reshape(b, l, 1), p, num_heads=h,
+        head_gate=gate)
+    open_ = vit_block.fused_vit_block(
+        x, mask.reshape(b, 1, l), mask.reshape(b, l, 1), p, num_heads=h,
+        head_gate=torch.ones(b, h))
+    plain = vit_block.fused_vit_block(
+        x, mask.reshape(b, 1, l), mask.reshape(b, l, 1), p, num_heads=h)
+    assert torch.equal(open_, plain) and not torch.equal(gated, plain)
+    att = vit_attention.fused_vit_attention(
+        torch.randn(b, l, 3 * d, generator=g), mask, gate, h, 0.125)
+    assert att.shape == (b, l, d)
+    assert vit_block.fused_vit_block_int8.launches == 0
+    assert vit_block.fused_vit_block.launches == 0
+    assert vit_attention.fused_vit_attention.launches == 0
+    with pytest.raises(ValueError, match="no kernel"):
+        vit_block.fused_vit_block_int8(x.to("meta"), mask, mask, qp,
+                                       num_heads=h)
+
+
+def test_int8_kernel_input_checks():
+    """`_check_cuda` on W8A8 parameters: codes int8, scales f32, biases
+    bf16, and K a multiple of the s8 stage (64)."""
+    b, l, d, h, hidden = 2, 5, 128, 2, 256
+
+    def qlin(o, i):
+        return {"weight_q": torch.zeros(o, i, dtype=torch.int8),
+                "scale": torch.ones(o),
+                "bias": torch.zeros(o, dtype=torch.bfloat16)}
+
+    ln = {"weight": torch.ones(d, dtype=torch.bfloat16),
+          "bias": torch.zeros(d, dtype=torch.bfloat16)}
+    p = {"ln1": ln, "ln2": ln, "qkv": qlin(3 * d, d), "proj": qlin(d, d),
+         "fc1": qlin(hidden, d), "fc2": qlin(d, hidden)}
+    x = torch.zeros(b, l, d, dtype=torch.bfloat16)
+    mask = torch.ones(b, l)
+    vit_block._check_cuda(x, (mask,), [p], h, torch.ones(b, h), int8=True)
+    with pytest.raises(ValueError, match="head_gate"):
+        vit_block._check_cuda(x, (mask,), [p], h, torch.ones(b, h + 1),
+                              int8=True)
+    with pytest.raises(TypeError, match="qkv must hold"):
+        vit_block._check_cuda(x, (mask,), [p], h)       # float kernels
+    with pytest.raises(TypeError, match="fc1.scale"):
+        bad = dict(p, fc1=dict(p["fc1"], scale=torch.ones(hidden).half()))
+        vit_block._check_cuda(x, (mask,), [bad], h, int8=True)
+    with pytest.raises(TypeError, match="proj.weight_q"):
+        bad = dict(p, proj=dict(p["proj"],
+                                weight_q=torch.zeros(d, d, dtype=torch.uint8)))
+        vit_block._check_cuda(x, (mask,), [bad], h, int8=True)
+    with pytest.raises(ValueError, match="K % 64"):
+        bad = dict(p, fc1=qlin(96, d), fc2=qlin(d, 96))
+        vit_block._check_cuda(x, (mask,), [bad], h, int8=True)
