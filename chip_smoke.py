@@ -3,18 +3,20 @@
     python3 chip_smoke.py
 
 Drives the port's serving paths through
-`laudnet_tpu_torch.infer.fused_vit.build_fused_vit` and `LAUDViT` on the
-card at full model width (batch 128, 224x224, bf16, random weights from a
-seeded torch.Generator). Phases, each raising on failure:
+`laudnet_tpu_torch.infer.fused_vit.build_fused_vit` and `LAUDViT`, and its
+training path through `laudnet_tpu_torch.train.main.main`, on the card at
+full model width (batch 128, 224x224, bf16, random weights from a seeded
+torch.Generator). Phases, each raising on failure:
 
 1. device: a CUDA card is required (there is no CPU path);
 2. build: the kernels of `laudnet_tpu_torch/csrc/` with nvcc, into
    `laudnet_tpu_torch/csrc/_build/`;
 3. kernels vs plain: B1 (`fused_vit_block`, also with a head gate), B2
-   (`fused_vit_segment`), B6 (`fused_vit_block_int8`) and B4
-   (`fused_vit_attention`) against their plain PyTorch versions at DeiT-S
-   and T2T-ViT-19 shapes, with times, bounds and, for B4, the time of
-   PyTorch's own fused attention call as a yardstick;
+   (`fused_vit_segment`), B6 (`fused_vit_block_int8`), B4
+   (`fused_vit_attention`) and B5 (its backward) against their plain
+   PyTorch versions at DeiT-S and T2T-ViT-19 shapes, with times, bounds
+   and, for B4 and B5, the time of PyTorch's own fused attention call
+   (forward, backward) as a yardstick;
 4. DeiT-S serving: LAUD-DeiT-S (12 layers, D=384, 6 heads of 64) four ways
    (nominal, snapped and flat-0.5 caps, and dense) through the kernels,
    with launch counts, token counts, agreement with the same engine on
@@ -22,13 +24,20 @@ seeded torch.Generator). Phases, each raising on failure:
 5. the rest of ViT serving: LAUD-T2T-ViT-19 (performer stem, 14 layers,
    D=448, 7 heads of 64, hidden 1344) dense and with selection; DeiT-S
    W8A8 (`int8=True`) dense and with selection; DeiT-S with head gates;
-   and `LAUDViT(attn_impl='fused')` eval.
+   and `LAUDViT(attn_impl='fused')` eval;
+6. DeiT-S training: ``train.main.main(--arch laud_deit_small --vit_attn
+   fused --amp --batch_size 128)`` for 8 steps on synthetic data, with B4
+   and B5 launch counts; then the same trainer on a repeated batch (the
+   loss must fall), its first step held against the same step through the
+   plain attention (metrics and the gradients that B5 feeds), and step
+   time, img/s, peak memory and B4's and B5's share of a step.
 
 Prints a JSON line of the kernels, then as its last line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 
 ``python3 chip_smoke.py kernels`` stops after phase 3 (a short run to check
-a changed kernel), and ``python3 chip_smoke.py profile`` prints, instead of
+a changed kernel), ``python3 chip_smoke.py train`` runs phases 1-3 and 6,
+and ``python3 chip_smoke.py profile`` prints, instead of
 the phases, where a forward's device time goes (`torch.profiler`, by
 kernel) for the dense DeiT-S, W8A8 DeiT-S and T2T-ViT-19 engines. Neither
 prints a result line.
@@ -41,6 +50,7 @@ import math
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -112,6 +122,25 @@ REL_ERR_CAP = 2 * REL_ERR_MAX
 INT8_TOP1_MIN, INT8_REL_ERR_MAX = 0.95, 0.15
 RIDGE = 0.1  # fit_head's ridge, relative to the mean feature variance
 SRC = "laudnet_tpu_torch/csrc/vit_block.cu"
+SRC_BWD = "laudnet_tpu_torch/csrc/vit_attention_bwd.cu"
+# B5 against its plain version: both round P, dS and the gated dO to bf16 at
+# the same points, so dqkv holds the ULPS bound above; dhead is an f32 sum
+# of L * 64 products per entry and is held to DHEAD_REL of its largest entry.
+DHEAD_REL = 2e-3
+# Training, first step through the kernels vs through the plain attention
+# (same weights, same noise seed): every loss part within TRAIN_REL. Beyond
+# bf16 rounding, a Gumbel gate at a tie can flip between the two runs, and
+# the straight-through residue of a kept token reaches the key mask
+# (tests/test_torch_laud_vit_train.py), so the two forwards are two samples
+# of one noisy step: 0.7% apart on the H100 at batch 128. The backward is
+# held apart from that: the same step with B4's forward and the PLAIN
+# backward has the same activations, so its gradients differ from the
+# kernels' only by B5's summation order. The gradients of the qkv products,
+# which B5 feeds directly, must then agree over all layers: cosine
+# similarity at least GRAD_COS_MIN, and a norm within GRAD_NORM_REL. A wrong
+# dQ, dK or dV (a sign, a transpose, a missing scale) fails both by far.
+TRAIN_REL, GRAD_COS_MIN, GRAD_NORM_REL = 2e-2, 0.999, 1e-2
+TRAIN_STEPS = 8
 # Published dense peaks of the H100 SXM (NVIDIA data sheet) for the bounds.
 PEAK_BF16, PEAK_S8, PEAK_HBM = 989e12, 1979e12, 3.35e12
 
@@ -198,6 +227,19 @@ def attention_bound(l, d, heads, gated):
             "operations" if ops_s >= bytes_s else "bytes")
 
 
+def attention_bwd_bound(l, d, heads, gated):
+    """As `attention_bound`, for the backward: five products of 2*l*l*64
+    operations per image and head (dV, dP, dQ, dK and the recomputed S; a
+    sixth, P.V, for the gate's gradient); qkv and dO read once, dqkv
+    written once, masks."""
+    m = B * l
+    ops_s = (6 if gated else 5) * 2 * B * heads * l * l * 64 / PEAK_BF16
+    bytes_s = (2 * m * 3 * d * 2 + m * d * 2 + m * 4
+               + (2 * B * heads * 4 if gated else 0)) / PEAK_HBM
+    return (max(ops_s, bytes_s) * 1e3,
+            "operations" if ops_s >= bytes_s else "bytes")
+
+
 def layer_params(g, dev, d, hidden, policy=False):
     """Random bf16 layer weights (lecun-normal scale). A token policy reads
     feature 0 (keep iff it is >= 0)."""
@@ -271,7 +313,8 @@ def compare(tag, fn, ref_fn, card, results, key, label, bound, library=None):
 def phase_kernels(dev, card):
     g = torch.Generator().manual_seed(0)
     results = {"fused_vit_block": [], "fused_vit_segment": [],
-               "fused_vit_block_int8": [], "fused_vit_attention": []}
+               "fused_vit_block_int8": [], "fused_vit_attention": [],
+               "fused_vit_attention_bwd": []}
 
     # --- B1, DeiT-S and T2T widths (448 and 1344 are not multiples of the
     # 128-wide GEMM tile: this guards its edge tiles) --------------------
@@ -366,6 +409,51 @@ def phase_kernels(dev, card):
                     note if gated else "", attention_bound(l, d, heads, gated),
                     library=lambda: F.scaled_dot_product_attention(
                         q, k, v, attn_mask=neg, scale=0.125))
+
+    # --- B5, the attention backward; yardstick: the backward of PyTorch's
+    # fused attention on the same shapes (its forward's graph is built once
+    # and only the backward is timed) ---------------------------------------
+    for geom, l, ragged, note in ((DEIT, L_FULL, False, "serving"),
+                                  (T2T, L_FULL, False, "t2t"),
+                                  (DEIT, 137, True, "")):
+        d, heads = geom["d"], geom["heads"]
+        qkv = torch.randn(B, l, 3 * d, generator=g).to(dev, torch.bfloat16)
+        cot = torch.randn(B, l, d, generator=g).to(dev, torch.bfloat16)
+        mask = key_mask(g, l, dev, ragged)
+        q, k, v = (t.detach().requires_grad_() for t in
+                   qkv.reshape(B, l, 3, heads, 64).permute(2, 0, 3, 1, 4))
+        neg = ((1.0 - mask) * -1e9).to(torch.bfloat16)[:, None, None, :]
+        lib_out = F.scaled_dot_product_attention(q, k, v, attn_mask=neg,
+                                                 scale=0.125)
+        lib_cot = cot.reshape(B, l, heads, 64).permute(0, 2, 1, 3)
+        for gated in (False, True):
+            gate = head_gate(g, heads, dev) if gated else None
+            args = (qkv, mask, gate, cot, heads, 0.125)
+            tag = (f"B5 fused_vit_attention backward D={d} L={l} "
+                   f"{'ragged' if ragged else 'full'} key mask"
+                   f"{' head mask' if gated else ''}")
+            compare(tag, lambda: vit_attention._launch_bwd(*args)[0],
+                    lambda: vit_attention.reference_vit_attention_bwd(
+                        *args)[0],
+                    card, results, "fused_vit_attention_bwd",
+                    note if gated else "",
+                    attention_bwd_bound(l, d, heads, gated),
+                    library=lambda: torch.autograd.grad(
+                        lib_out, (q, k, v), lib_cot, retain_graph=True))
+            if gated:
+                dhead = vit_attention._launch_bwd(*args)[1]
+                ref = vit_attention.reference_vit_attention_bwd(*args)[1]
+                err = (dhead - ref).abs().max().item()
+                tol = DHEAD_REL * ref.abs().max().item()
+                closed = vit_attention._launch_bwd(*args)[0][0].reshape(
+                    l, 3, heads, 64)[:, :, 0]
+                print(f"{tag}: dhead max_abs_err {err:.6g} (tol {tol:.6g}); "
+                      f"closed head dgate {dhead[0, 0].item():.6g}")
+                if not err <= tol:
+                    raise AssertionError(f"{tag}: dhead disagrees with plain")
+                if closed.any() or dhead[0, 0].item() == 0.0:
+                    raise AssertionError(f"{tag}: a closed head must have "
+                                         "zero dqkv and a non-zero dgate")
     return results
 
 
@@ -416,10 +504,13 @@ def agreement(out, ref):
     return top1, rel
 
 
-COUNTERS = {"fused_vit_block": vit_block.fused_vit_block,
-            "fused_vit_segment": vit_block.fused_vit_segment,
-            "fused_vit_block_int8": vit_block.fused_vit_block_int8,
-            "fused_vit_attention": vit_attention.fused_vit_attention}
+COUNTERS = {  # kernel -> (the wrapper that holds its count, the count)
+    "fused_vit_block": (vit_block.fused_vit_block, "launches"),
+    "fused_vit_segment": (vit_block.fused_vit_segment, "launches"),
+    "fused_vit_block_int8": (vit_block.fused_vit_block_int8, "launches"),
+    "fused_vit_attention": (vit_attention.fused_vit_attention, "launches"),
+    "fused_vit_attention_bwd": (vit_attention.fused_vit_attention,
+                                "bwd_launches")}
 # Launches of each kernel on the main paths: every path is driven once with
 # all counts set to 0 just before it and read just after (`counted`), and
 # the readings add up here. Launches made to compare a kernel with its
@@ -427,16 +518,20 @@ COUNTERS = {"fused_vit_block": vit_block.fused_vit_block,
 MAIN_PATH_LAUNCHES = dict.fromkeys(COUNTERS, 0)
 
 
-def counted(drive):
+def counted(drive, main_path=True):
     """Runs ``drive()`` from zeroed launch counts; returns its result and
-    the counts it left, which are added to `MAIN_PATH_LAUNCHES`."""
-    for fn in COUNTERS.values():
-        fn.launches = 0
+    the counts it left. A main path's counts are added to
+    `MAIN_PATH_LAUNCHES`; a run whose kernels this script has swapped for
+    their plain versions is no main path (``main_path=False``): its counts
+    are returned for the caller's assertions and added nowhere."""
+    for fn, attr in COUNTERS.values():
+        setattr(fn, attr, 0)
     out = drive()
     torch.cuda.synchronize()
-    delta = {name: fn.launches for name, fn in COUNTERS.items()}
-    for name, n in delta.items():
-        MAIN_PATH_LAUNCHES[name] += n
+    delta = {name: getattr(fn, attr) for name, (fn, attr) in COUNTERS.items()}
+    if main_path:
+        for name, n in delta.items():
+            MAIN_PATH_LAUNCHES[name] += n
     return out, delta
 
 
@@ -613,6 +708,166 @@ def phase_slice2(dev, card, deit32, deit, images, deit_rates):
           f"{r_ips:.1f} img/s with 'reference' (bs{B} bf16) [{card}]")
 
 
+# --- training ---------------------------------------------------------------
+
+TRAIN_ARGV = ["--arch", "laud_deit_small", "--vit_attn", "fused", "--amp",
+              "--batch_size", str(B), "--input_size", str(IMG),
+              "--epochs", "1", "--steps_per_epoch", str(TRAIN_STEPS),
+              "--print_freq", "1"]
+LOSS_PARTS = ("loss", "loss_cls", "loss_kd", "loss_flops")
+
+
+class plain_attention:
+    """Within the block the attention Function runs its plain forward and
+    backward (or, ``forward=False``, its plain backward only) on CUDA
+    tensors too: the yardstick of the kernels' step. Only this script swaps
+    them; the port never does."""
+
+    def __init__(self, forward=True):
+        self.forward = forward
+
+    def __enter__(self):
+        self.saved = (vit_attention._launch_fwd, vit_attention._launch_bwd)
+        if self.forward:
+            vit_attention._launch_fwd = vit_attention.reference_vit_attention
+        vit_attention._launch_bwd = vit_attention.reference_vit_attention_bwd
+
+    def __exit__(self, *exc):
+        vit_attention._launch_fwd, vit_attention._launch_bwd = self.saved
+
+
+def qkv_grads(model):
+    return torch.cat([blk.qkv.weight.grad.flatten() for blk in model.blocks])
+
+
+def phase_train(dev, card):
+    from torch.profiler import ProfilerActivity, profile
+
+    from laudnet_tpu_torch.train import main as train_main
+
+    # --- the entry point, end to end: 8 steps, validation, checkpoint -----
+    with tempfile.TemporaryDirectory() as out_dir:
+        best, delta = counted(lambda: train_main.main(
+            TRAIN_ARGV + ["--train_url", out_dir]))
+        with open(f"{out_dir}/log.txt") as f:
+            header, row = (line.strip().split(",") for line in f.readlines())
+        log = open(f"{out_dir}/train.log").read()
+    n_b4, n_b5 = delta["fused_vit_attention"], delta["fused_vit_attention_bwd"]
+    print(f"train.main: best top1 {best:.4f}; launches {delta}; log.txt "
+          f"{dict(zip(header, row))}")
+    # per step 12 teacher + 12 student forwards and 12 backwards; the two
+    # validation batches add 12 forwards each
+    if n_b4 != 24 * TRAIN_STEPS + 24 or n_b5 != 12 * TRAIN_STEPS:
+        raise AssertionError(f"train.main: expected {24 * TRAIN_STEPS + 24} "
+                             f"B4 and {12 * TRAIN_STEPS} B5 launches")
+    if not all(math.isfinite(float(v)) for v in row) or "nan" in log:
+        raise AssertionError("train.main: a metric is not finite")
+
+    # --- the same trainer on one repeated batch ----------------------------
+    args = train_main.parse_args(TRAIN_ARGV)
+    quiet = lambda *a, **k: None
+    images, labels = next(train_main.synthetic_batches(B, IMG, 1000, 1,
+                                                       seed=0))
+
+    def run(steps):
+        tr = train_main.build_training(args, quiet)
+        x, y = tr.to_device(images, labels)
+        out = [tr.train_step(tr.state, x, y) for _ in range(steps)]
+        return tr, x, y, [{k: float(v) for k, v in m.items()} for m in out]
+
+    (tr, x, y, metrics), delta = counted(lambda: run(TRAIN_STEPS))
+    for i, m in enumerate(metrics):
+        print(f"train step {i}: " + ", ".join(
+            f"{k} {m[k]:.6g}" for k in LOSS_PARTS + ("act_rate", "top1", "lr",
+                                                     "temperature")))
+        if not all(math.isfinite(m[k]) for k in LOSS_PARTS):
+            raise AssertionError(f"train step {i}: a loss part is not finite")
+    if (delta["fused_vit_attention"] != 24 * TRAIN_STEPS
+            or delta["fused_vit_attention_bwd"] != 12 * TRAIN_STEPS):
+        raise AssertionError(f"repeated batch: launches {delta}")
+    if not metrics[-1]["loss"] < metrics[0]["loss"]:
+        raise AssertionError("the loss did not fall on a repeated batch: "
+                             f"{metrics[0]['loss']} -> {metrics[-1]['loss']}")
+
+    # --- first step: kernels vs the plain attention, same weights and seed -
+    tr_k, _, _, first_k = run(1)
+    grads_k = qkv_grads(tr_k.model).float()
+    with plain_attention(forward=False):    # B4 forward, plain backward
+        (tr_b, _, _, first_b), delta = counted(lambda: run(1),
+                                               main_path=False)
+    if delta["fused_vit_attention_bwd"] or not delta["fused_vit_attention"]:
+        raise AssertionError(f"plain backward step: launches {delta}")
+    grads_b = qkv_grads(tr_b.model).float()
+    cos = F.cosine_similarity(grads_k, grads_b, dim=0).item()
+    norm_rel = abs(grads_k.norm().item() / grads_b.norm().item() - 1.0)
+    print(f"first step, B5 vs the plain backward behind the same forward: "
+          f"cosine of the qkv weights' gradients {cos:.6f} (at least "
+          f"{GRAD_COS_MIN}), norms differ by {norm_rel:.6g} (at most "
+          f"{GRAD_NORM_REL}); loss {first_k[0]['loss']:.6g} / "
+          f"{first_b[0]['loss']:.6g}")
+    if (not cos >= GRAD_COS_MIN or not norm_rel <= GRAD_NORM_REL
+            or first_k[0]["loss"] != first_b[0]["loss"]):
+        raise AssertionError("B5's gradients disagree with the plain "
+                             "backward's in the training step")
+    with plain_attention():                 # plain forward and backward
+        (tr_p, _, _, first_p), delta = counted(lambda: run(1),
+                                               main_path=False)
+    if any(delta.values()):
+        raise AssertionError(f"the plain step launched a kernel: {delta}")
+    worst = max(abs(first_k[0][k] - first_p[0][k]) / abs(first_p[0][k])
+                for k in LOSS_PARTS)
+    cos_p = F.cosine_similarity(grads_k, qkv_grads(tr_p.model).float(),
+                                dim=0).item()
+    print("first step through kernels vs plain attention: " + ", ".join(
+        f"{k} {first_k[0][k]:.6g} / {first_p[0][k]:.6g}" for k in LOSS_PARTS)
+        + f"; worst relative difference {worst:.6g} (bound {TRAIN_REL}); "
+        f"cosine of the qkv weights' gradients {cos_p:.6f} (two samples of "
+        f"a noisy step: not bounded)")
+    if not worst <= TRAIN_REL:
+        raise AssertionError("training through the kernels disagrees with "
+                             "the plain attention")
+    del tr_k, tr_b, tr_p
+
+    # --- step time, memory, and where the step goes ------------------------
+    torch.cuda.reset_peak_memory_stats()
+    ms = time_ms(lambda: tr.train_step(tr.state, x, y), reps=6, warmup=2)
+    peak = torch.cuda.max_memory_allocated()
+    with plain_attention():
+        plain_ms = time_ms(lambda: tr.train_step(tr.state, x, y), reps=3,
+                           warmup=1)
+    steps = 3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            tr.train_step(tr.state, x, y)
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    events.sort(key=lambda e: -e.device_time_total)
+    total = sum(e.device_time_total for e in events) / steps / 1e3
+
+    def share(name):
+        return sum(e.device_time_total for e in events
+                   if name in e.key) / steps / 1e3
+
+    b5_ms, b4_ms = share("attention_bwd_kernel"), share("attention_kernel")
+    host = {e.key: e.count / steps for e in prof.key_averages()
+            if e.key in ("cudaLaunchKernel", "cudaStreamSynchronize",
+                         "cudaDeviceSynchronize", "aten::item",
+                         "cudaMemcpyAsync")}
+    if not (b5_ms > 0 and b4_ms > 0):
+        raise AssertionError("the profile shows no attention kernel time")
+    print(f"train step (DeiT-S, fused attention, bf16 compute, bs{B}): "
+          f"{ms:.4f} ms, {B / (ms / 1e3):.1f} img/s (plain attention: "
+          f"{plain_ms:.4f} ms); peak memory {peak / 2 ** 30:.4f} GiB; "
+          f"{total:.4f} ms of kernels per step, idle share "
+          f"{max(0.0, 1 - total / ms):.4f}; B5 {b5_ms:.4f} ms "
+          f"({b5_ms / ms:.4f} of a step), B4 {b4_ms:.4f} ms "
+          f"({b4_ms / ms:.4f}); host calls per step {host} [{card}]")
+    for e in events[:14]:
+        print(f"  {e.device_time_total / steps / 1e3:9.4f} ms "
+              f"x{e.count // steps:<4d} {e.key[:100]}")
+
+
 def phase_profile(dev, card, forwards=5, rows=22):
     """Device time by kernel over ``forwards`` forwards of each engine."""
     from torch.profiler import ProfilerActivity, profile
@@ -652,6 +907,7 @@ REPLACES = {
     "fused_vit_segment": "laudnet_tpu/ops/pallas/vit_block.py:472",
     "fused_vit_block_int8": "laudnet_tpu/ops/pallas/vit_block.py:175",
     "fused_vit_attention": "laudnet_tpu/ops/pallas/vit_attention.py:194",
+    "fused_vit_attention_bwd": "laudnet_tpu/ops/pallas/vit_attention.py:335",
 }
 
 
@@ -667,15 +923,22 @@ def main():
     if sys.argv[1:] == ["kernels"]:
         print(f"kernel phases passed in {time.perf_counter() - t0:.1f} s")
         return
+    if sys.argv[1:] == ["train"]:
+        phase_train(dev, card)
+        print(f"training phase passed in {time.perf_counter() - t0:.1f} s")
+        return
     deit32, deit, images, deit_rates = phase_slice(dev, card)
     phase_slice2(dev, card, deit32, deit, images, deit_rates)
+    del deit32, deit, images
+    phase_train(dev, card)
     launches = MAIN_PATH_LAUNCHES
     kernels = []
     for name, rows in results.items():
         # the numbers at the serving shape (DeiT-S, the longest L, fast_math
         # where the kernel has it)
         row = next(r for r in rows if r["label"] == "serving")
-        kernels.append({"name": name, "route": "cuda", "source": SRC,
+        kernels.append({"name": name, "route": "cuda",
+                        "source": SRC_BWD if name.endswith("_bwd") else SRC,
                         "replaces": REPLACES[name],
                         "launches": launches[name],
                         "max_abs_err": max(r["err"] for r in rows),

@@ -21,6 +21,10 @@ loaded floats, never carried across.
 
 Flax names the blocks ``block_{i}``; the port holds them in
 ``blocks.{i}``.
+
+`to_flax_tree` is the inverse: the port's parameters (or their gradients)
+back in the flax tree's layout as numpy, so a test can hold a train step's
+updated parameters and gradients against JAX's leaf by leaf.
 """
 
 from __future__ import annotations
@@ -87,3 +91,33 @@ def load_flax_variables(model: nn.Module,
         raise KeyError(f"port parameters not in the flax tree: "
                        f"{sorted(unset)}")
     return model
+
+
+def to_flax_tree(model: nn.Module, grads: bool = False) -> dict:
+    """The model's parameters (``grads``: their ``.grad``; a parameter
+    without one gives zeros) as a nested dict in the flax ``params`` layout
+    with f32 numpy leaves: Linear ``weight`` (out, in) -> ``kernel``
+    (in, out), Conv2d OIHW -> HWIO, LayerNorm ``weight`` -> ``scale``,
+    ``blocks.{i}`` -> ``block_{i}``; the rest as it is."""
+    kinds = {name: type(m) for name, m in model.named_modules()}
+    tree: dict = {}
+    for name, param in model.named_parameters():
+        value = param.grad if grads else param
+        if value is None:
+            value = torch.zeros_like(param)
+        arr = value.detach().float().cpu().numpy()
+        module, _, leaf = name.rpartition(".")
+        kind = kinds.get(module)
+        if leaf == "weight" and kind is not None:
+            if issubclass(kind, nn.LayerNorm):
+                leaf = "scale"
+            elif issubclass(kind, nn.Conv2d):
+                leaf, arr = "kernel", arr.transpose(2, 3, 1, 0)
+            elif issubclass(kind, nn.Linear):
+                leaf, arr = "kernel", arr.T
+        path = re.sub(r"^blocks\.(\d+)(\.|$)", r"block_\1\2", module)
+        node = tree
+        for key in [k for k in path.split(".") if k]:
+            node = node.setdefault(key, {})
+        node[leaf] = np.ascontiguousarray(arr)
+    return tree

@@ -1,8 +1,9 @@
-"""LAUD-ViT eval forward with token, head and layer (block) gating
-(counterpart of `laudnet_tpu/models/laud_vit.py`).
+"""LAUD-ViT with token, head and layer (block) gating (counterpart of
+`laudnet_tpu/models/laud_vit.py`).
 
-DeiT-style backbone. Gates are eval ``on >= off`` comparisons
-(`ops/gating.py`). Skipped tokens are removed as attention keys by an
+DeiT-style backbone. Gates are straight-through Gumbel-softmax samples in
+training and ``on >= off`` comparisons at eval (`ops/gating.py`). Skipped
+tokens are removed as attention keys by an
 additive -1e9 mask and contribute nothing to the residual stream; with
 ``token_capacity`` the surviving tokens are gathered down to a fixed
 budget at block entry (the serving selection path). FLOPs bookkeeping
@@ -12,11 +13,17 @@ included.
 Images enter NHWC (B, H, W, 3) as in the JAX package; token streams are
 (B, L, D) and masks (B, L). ``stem='t2t'`` swaps the conv patchifier for
 the tokens-to-token performer stem (`models/t2t.py`), ``attn_impl='fused'``
-runs the attention through the fused kernel (`ops/vit_attention.py`) and
-``linear_impl='int8'`` the four body products as W8A8
-(`ops/quant.py::QuantDense`), all at eval. Training (Gumbel gates, the
-attention backward, ``linear_impl='int8_qat'``) belongs to the training
-slice and raises.
+runs the attention through the fused kernels (`ops/vit_attention.py`,
+forward and backward), ``linear_impl='int8'`` the four body products as
+W8A8 at eval (`ops/quant.py::QuantDense`), and ``linear_impl='int8_qat'``
+additionally as fake-quant products in training.
+
+``compute_dtype`` (the JAX modules' ``dtype``) is mixed precision: the
+parameters stay in their own dtype (f32 masters), the body products run in
+``compute_dtype`` and the LayerNorms in f32 with their output rounded to
+it, the residual stream is ``compute_dtype``, and the policy heads run in
+f32 on the f32-promoted input, so gate decisions are f32. ``dtype`` is the
+parameter dtype.
 
 Constructors build on the card unless given a ``device``
 (`laudnet_tpu_torch/device.py`).
@@ -36,7 +43,7 @@ from laudnet_tpu_torch.device import resolve_device
 from laudnet_tpu_torch.models.t2t import (T2TStem, TokenPerformer,
                                           t2t_stem_flops)
 from laudnet_tpu_torch.ops.gating import binary_gate
-from laudnet_tpu_torch.ops.quant import QuantDense
+from laudnet_tpu_torch.ops.quant import QuantDense, fake_quant_linear
 from laudnet_tpu_torch.ops.vit_attention import (
     fused_vit_attention, reference_vit_attention)
 
@@ -113,13 +120,38 @@ def _check_impls(attn_impl: str, linear_impl: str) -> None:
     if attn_impl not in ("reference", "fused"):
         raise ValueError(f"attn_impl must be 'reference' or 'fused', got "
                          f"{attn_impl!r}")
-    if linear_impl == "int8_qat":
-        raise NotImplementedError(
-            "linear_impl='int8_qat' (fake-quant training) belongs to the "
-            "training slice of the port")
-    if linear_impl not in ("dense", "int8"):
-        raise ValueError(f"linear_impl must be 'dense' or 'int8', got "
-                         f"{linear_impl!r}")
+    if linear_impl not in ("dense", "int8", "int8_qat"):
+        raise ValueError(f"linear_impl must be 'dense', 'int8' or "
+                         f"'int8_qat', got {linear_impl!r}")
+
+
+def _linear(m: nn.Linear, x, cd, training: bool = False, qat: bool = False):
+    """A body product: in the parameters' dtype, or, under mixed precision,
+    on ``cd`` copies of the f32 masters. A `QuantDense` runs W8A8 at eval;
+    in training its weights run fake-quant under ``qat`` and dense
+    otherwise."""
+    if isinstance(m, QuantDense):
+        if not training:
+            return m(x)
+        if qat:
+            return fake_quant_linear(x, m.weight, m.bias)
+    if cd is None:
+        return F.linear(x, m.weight, m.bias)
+    return F.linear(x.to(cd), m.weight.to(cd), m.bias.to(cd))
+
+
+def _norm(m: nn.LayerNorm, x, cd):
+    """LayerNorm; under mixed precision in f32 with the output rounded to
+    ``cd``, as flax's LayerNorm with a compute dtype."""
+    if cd is None:
+        return m(x)
+    return F.layer_norm(x.float(), m.normalized_shape, m.weight.float(),
+                        m.bias.float(), m.eps).to(cd)
+
+
+def _policy(m: nn.Linear, x, cd):
+    """A policy head; under mixed precision on the f32-promoted input."""
+    return m(x) if cd is None else m(x.float())
 
 
 class LAUDViTBlock(nn.Module):
@@ -128,7 +160,8 @@ class LAUDViTBlock(nn.Module):
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0, *,
                  token_skip: bool = True, head_skip: bool = True,
                  layer_skip: bool = True, attn_impl: str = "reference",
-                 linear_impl: str = "dense", device=None, dtype=None):
+                 linear_impl: str = "dense", device=None, dtype=None,
+                 compute_dtype=None):
         super().__init__()
         _check_impls(attn_impl, linear_impl)
         kw = dict(device=resolve_device(device), dtype=dtype)
@@ -136,10 +169,13 @@ class LAUDViTBlock(nn.Module):
         self.hidden = int(dim * mlp_ratio)
         self.token_skip, self.head_skip = token_skip, head_skip
         self.layer_skip = layer_skip
-        self.attn_impl = attn_impl
+        self.attn_impl, self.linear_impl = attn_impl, linear_impl
+        self.compute_dtype = compute_dtype
         # body products: nn.Linear, or the checkpoint-compatible W8A8
-        # QuantDense at eval; policy heads and norms stay float
-        dense = QuantDense if linear_impl == "int8" else nn.Linear
+        # QuantDense: real s8 at eval; in training 'int8_qat' runs its
+        # weights through fake-quant and 'int8' trains dense.
+        # Policy heads and norms stay float.
+        dense = nn.Linear if linear_impl == "dense" else QuantDense
         self.layer_policy = nn.Linear(dim, 4, **kw) if layer_skip else None
         self.head_policy = (nn.Linear(dim, 2 * num_heads, **kw)
                             if head_skip else None)
@@ -151,42 +187,54 @@ class LAUDViTBlock(nn.Module):
         self.fc1 = dense(dim, self.hidden, **kw)
         self.fc2 = dense(self.hidden, dim, **kw)
 
-    def forward(self, x, token_mask, *, capacity: Optional[int] = None,
+    def forward(self, x, token_mask, temperature=None, *,
+                training: bool = False, noise=None,
+                capacity: Optional[int] = None,
                 book_len: Optional[int] = None):
         """``capacity``: static keep count gathered right after the token
-        gate, before this block's attention; ``book_len``: the original
-        token count (N+1) the FLOPs are booked against."""
+        gate, before this block's attention (eval only); ``book_len``: the
+        original token count (N+1) the FLOPs are booked against. Training
+        draws its Gumbel noise from ``noise`` in the order layer, head,
+        token."""
         b, l, d = x.shape
         l_book = book_len or l
         h = self.num_heads
-        f32 = lambda v: torch.as_tensor(v, dtype=torch.float32,
-                                        device=x.device)
-        one = f32(1.0)
+        cd = self.compute_dtype
+        # made on the device: a host scalar copied over would hold the
+        # host until the card has caught up, once a block
+        one = torch.ones((), dtype=torch.float32, device=x.device)
         cls = x[:, 0]
+        gate_kw = dict(training=training, noise=noise)
 
         attn_keep = mlp_keep = one
         attn_gate = mlp_gate = None
         policy_flops = 0
         if self.layer_policy is not None:
-            pair = self.layer_policy(cls).reshape(b, 2, 2)
-            gate = binary_gate(pair)  # (B, [attn, mlp])
-            attn_gate, mlp_gate = gate[:, 0], gate[:, 1]
+            pair = _policy(self.layer_policy, cls, cd).reshape(b, 2, 2)
+            gate = binary_gate(pair, temperature, **gate_kw)
+            attn_gate, mlp_gate = gate[:, 0], gate[:, 1]  # (B,) each
             attn_keep, mlp_keep = attn_gate.mean(), mlp_gate.mean()
             policy_flops += d * 4
 
         head_mask = None
         head_density = one
         if self.head_policy is not None:
-            head_mask = binary_gate(self.head_policy(cls).reshape(b, 2, h))
+            head_mask = binary_gate(
+                _policy(self.head_policy, cls, cd).reshape(b, 2, h),
+                temperature, **gate_kw)
             head_density = head_mask.mean()
             policy_flops += d * 2 * h
 
         token_score = torch.zeros((b, l), dtype=torch.float32,
                                   device=x.device)
         if self.token_policy is not None:
-            tlogits = self.token_policy(x)
-            tmask = binary_gate(tlogits.reshape(b, l, 2, 1))[..., 0]
-            tmask[:, 0] = 1.0  # class token always kept; gates compose
+            tlogits = _policy(self.token_policy, x, cd)
+            tmask = binary_gate(tlogits.reshape(b, l, 2, 1), temperature,
+                                **gate_kw)[..., 0]
+            # class token always kept (out of place: tmask is on the
+            # autograd path in training); gates compose across depth
+            tmask = torch.cat([torch.ones_like(tmask[:, :1]), tmask[:, 1:]],
+                              dim=1)
             token_mask = token_mask * tmask
             token_score = (tlogits[..., 0] - tlogits[..., 1]).float()
             policy_flops += l_book * d * 2
@@ -194,11 +242,13 @@ class LAUDViTBlock(nn.Module):
         token_density = token_mask.mean() * (l / l_book)
         token_keep = token_mask.mean(dim=1) * (l / l_book)
 
-        if capacity is not None and capacity < l:
+        if capacity is not None and not training and capacity < l:
             # kept strictly above dropped, ties among kept by confidence,
             # class token pinned; descending stable sort = lax.top_k order
-            rank = token_mask.float() * 2.0 + torch.sigmoid(token_score)
-            rank[:, 0] += 4.0
+            pin = torch.zeros(l, dtype=torch.float32, device=x.device)
+            pin[0] = 4.0
+            rank = (token_mask.float() * 2.0 + torch.sigmoid(token_score)
+                    + pin)
             idx = torch.sort(rank, dim=1, descending=True,
                              stable=True).indices[:, :capacity]
             x = torch.gather(x, 1, idx[..., None].expand(-1, -1, d))
@@ -206,16 +256,21 @@ class LAUDViTBlock(nn.Module):
             token_score = torch.gather(token_score, 1, idx)
             l = capacity
 
-        y = self.norm1(x)
+        y = _norm(self.norm1, x, cd)
         attend = (fused_vit_attention if self.attn_impl == "fused"
                   else reference_vit_attention)
-        out = attend(self.qkv(y), token_mask, head_mask, h, (d // h) ** -0.5)
-        out = self.proj(out) * token_mask.to(x.dtype)[:, :, None]
+        qat = self.linear_impl == "int8_qat"
+        out = attend(_linear(self.qkv, y, cd, training, qat), token_mask,
+                     head_mask, h, (d // h) ** -0.5)
+        out = _linear(self.proj, out, cd, training, qat)
+        out = out * token_mask.to(out.dtype)[:, :, None]
         if attn_gate is not None:
             out = out * attn_gate.to(out.dtype)[:, None, None]
         x = x + out
 
-        y = self.fc2(F.gelu(self.fc1(self.norm2(x)), approximate="none"))
+        y = _linear(self.fc1, _norm(self.norm2, x, cd), cd, training, qat)
+        y = _linear(self.fc2, F.gelu(y, approximate="none"), cd, training,
+                    qat)
         y = y * token_mask.to(y.dtype)[:, :, None]
         if mlp_gate is not None:
             y = y * mlp_gate.to(y.dtype)[:, None, None]
@@ -233,9 +288,10 @@ class LAUDViTBlock(nn.Module):
 
 
 class LAUDViT(nn.Module):
-    """DeiT-style LAUD-ViT, eval forward.
+    """DeiT-style LAUD-ViT.
 
-    ``token_capacity`` enables the token-selection serving path: right
+    ``token_capacity`` (eval only) enables the token-selection serving
+    path: right
     after block ``i``'s token gate, surviving tokens are gathered down to
     ``int(capacity[i] * (N+1))`` so that block's attention and MLP and
     every later one run at the reduced length. ``img_size`` fixes the
@@ -253,6 +309,7 @@ class LAUDViT(nn.Module):
                  stem: str = "patch", attn_impl: str = "reference",
                  linear_impl: str = "dense", img_size: int = 224,
                  in_chans: int = 3, device=None, dtype=None,
+                 compute_dtype=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         if stem not in ("patch", "t2t"):
@@ -266,6 +323,7 @@ class LAUDViT(nn.Module):
         self.layer_skip = layer_skip
         self.token_capacity = token_capacity
         self.attn_impl, self.linear_impl = attn_impl, linear_impl
+        self.compute_dtype = compute_dtype
         if stem == "t2t":
             # the stem reduces 4 * 2 * 2 = 16x whatever patch_size says
             self.num_patches = (img_size // 16) ** 2
@@ -280,7 +338,8 @@ class LAUDViT(nn.Module):
         self.blocks = nn.ModuleList(
             LAUDViTBlock(dim, num_heads, mlp_ratio, token_skip=token_skip,
                          head_skip=head_skip, layer_skip=layer_skip,
-                         attn_impl=attn_impl, linear_impl=linear_impl, **kw)
+                         attn_impl=attn_impl, linear_impl=linear_impl,
+                         compute_dtype=compute_dtype, **kw)
             for _ in range(depth))
         self.norm = nn.LayerNorm(dim, eps=LN_EPS, **kw)
         self.head = nn.Linear(dim, num_classes, **kw)
@@ -324,45 +383,62 @@ class LAUDViT(nn.Module):
             if blk.token_policy is not None:
                 _open_bias_(blk.token_policy.bias, 1)
 
-    def forward(self, x, temperature=None, *, training: bool = False):
-        """``x``: NHWC images. ``temperature`` is unused at eval."""
-        if training:
-            raise NotImplementedError(
-                "training=True belongs to the training slice of the port")
+    def forward(self, x, temperature=None, *, training: bool = False,
+                noise=None):
+        """``x``: NHWC images. Training gates are Gumbel samples at
+        ``temperature`` with noise from ``noise`` (`ops/gating.py`), three
+        draws a block in the order layer, head, token; at eval
+        ``temperature`` is unused. ``flops_perc`` and ``flops`` of the
+        result carry the gate gradients."""
+        if training and noise is None:
+            raise ValueError("training=True needs a Gumbel noise source")
         b, _, _, c = x.shape
+        cd = self.compute_dtype
         if self.stem == "t2t":
-            x = self.t2t_stem(x)
+            x = self.t2t_stem(x)  # in the parameters' dtype, never in cd
             n = x.shape[1]
             flops = torch.tensor(t2t_stem_flops(self.dim),
                                  dtype=torch.float32)
         else:
-            x = self.patch_embed(x.permute(0, 3, 1, 2))
+            x = x.permute(0, 3, 1, 2)
+            pe = self.patch_embed
+            if cd is None:
+                x = pe(x)
+            else:
+                x = F.conv2d(x.to(cd), pe.weight.to(cd), pe.bias.to(cd),
+                             stride=pe.stride)
             n = x.shape[2] * x.shape[3]
             x = x.flatten(2).transpose(1, 2)
             flops = torch.tensor(
                 float(c * self.dim * self.patch_size ** 2 * n),
                 dtype=torch.float32)
+        if cd is not None:
+            x = x.to(self.cls_token.dtype)  # joins the f32 masters
         x = torch.cat([self.cls_token.expand(b, -1, -1), x], dim=1)
         x = x + self.pos_embed
+        if cd is not None:
+            x = x.to(cd)  # the residual stream stays in the compute dtype
 
         token_mask = torch.ones((b, n + 1), dtype=torch.float32,
                                 device=x.device)
+        select = self.token_capacity is not None and not training
         cur_len = n + 1
         stats_all = []
         for i, blk in enumerate(self.blocks):
             cap = None
-            if self.token_capacity is not None:
+            if select:
                 k = min(max(2, int(self.token_capacity[i] * (n + 1))),
                         cur_len)
                 if k < cur_len:
                     cap = cur_len = k
-            x, token_mask, st = blk(x, token_mask, capacity=cap,
-                                    book_len=n + 1)
+            x, token_mask, st = blk(x, token_mask, temperature,
+                                    training=training, noise=noise,
+                                    capacity=cap, book_len=n + 1)
             stats_all.append(st)
             flops = flops + st.sparse_flops
 
-        x = self.norm(x)
-        logits = self.head(x[:, 0])
+        x = _norm(self.norm, x, cd)
+        logits = _linear(self.head, x[:, 0], cd)
         flops = flops + self.dim * self.num_classes
 
         def stack(f):

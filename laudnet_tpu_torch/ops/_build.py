@@ -3,8 +3,9 @@ shared library with ``nvcc`` and binds its plain C interface with ctypes.
 
 The library is built at first use into ``csrc/_build/``, named by a hash
 of the sources and flags, so a changed source rebuilds and an unchanged
-one loads the existing file. Nothing here runs at import: the CPU test
-box has no ``nvcc``.
+one loads the existing file. Each ``.cu`` is compiled to an object by an
+``nvcc`` of its own, all started together, and one more ``nvcc`` links
+them. Nothing here runs at import: the CPU test box has no ``nvcc``.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # Every pointer and the stream are c_void_p: ctypes would pass a bare
@@ -41,6 +42,9 @@ _SIGNATURES = {
     "lt_layernorm_quant": (_P, _I, _P, _P, _P, _P, _I, _I, _F, _P),
     # x, x_is_f32, q, scale, rows, d, stream
     "lt_rowquant": (_P, _I, _P, _P, _I, _I, _P),
+    # qkv, key_mask, head_gate, dout, dqkv, dhead, b, l, num_heads, sm_scale,
+    # stream
+    "lt_attention_bwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P),
 }
 
 
@@ -78,18 +82,43 @@ def build() -> tuple[Path, float, str]:
     if out.exists():
         return out, 0.0, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(s) for s in _sources() if s.suffix == ".cu"]
+    cu = [s for s in _sources() if s.suffix == ".cu"]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
+    log = []
+
+    def start(args, log_path):
+        # output to a file: a full pipe would stall a compile nobody reads
+        with open(log_path, "w") as f:
+            return subprocess.Popen(args, stdout=f, stderr=subprocess.STDOUT)
+
+    def finish(proc, log_path, what):
+        code = proc.wait()
+        text = log_path.read_text()
+        log.append(text)
+        if code != 0:
+            raise RuntimeError(f"nvcc failed on {what} ({code}):\n{text}")
+
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-        tmp_lib = Path(tmp) / out.name
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp_lib), *cu],
-            capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stdout}\n{proc.stderr}")
+        tmp = Path(tmp)
+        objects = [tmp / f"{src.stem}.o" for src in cu]
+        logs = [tmp / f"{src.stem}.log" for src in cu]
+        procs = [start([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                       lg) for src, obj, lg in zip(cu, objects, logs)]
+        try:
+            for src, proc, lg in zip(cu, procs, logs):
+                finish(proc, lg, src.name)
+        finally:
+            for proc in procs:  # a failed source: stop the others
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        tmp_lib = tmp / out.name
+        finish(start([nvcc, "-shared", "-o", str(tmp_lib),
+                      *map(str, objects)], tmp / "link.log"),
+               tmp / "link.log", "the link")
         os.replace(tmp_lib, out)  # atomic: a reader never sees half a file
-    return out, time.perf_counter() - t0, proc.stdout + proc.stderr
+    return out, time.perf_counter() - t0, "".join(log)
 
 
 @functools.lru_cache(maxsize=None)

@@ -13,8 +13,10 @@ flax kernel is (K, N) and its `quantize_weight` reduces over axis 0: the
 codes and scales are the same, transposed. Codes round half to even
 (`torch.round`, as `jnp.round`) after a true divide by the scale.
 
-The QAT fake-quant functions belong to the training slice of the port and
-`QuantConv` to the CNN slice; they raise.
+`fake_quant_weight` and `fake_quant_rows` quantise and dequantise with a
+straight-through gradient (QAT); `fake_quant_linear`, which
+``QuantDense(fake=True)`` runs, is the float product over both. `fake_quant_per_image` and `QuantConv` belong to the CNN
+slice of the port; they raise.
 """
 
 from __future__ import annotations
@@ -67,34 +69,56 @@ def int8_linear(x: torch.Tensor, wq: torch.Tensor, wscale: torch.Tensor,
     return out
 
 
+def fake_quant_weight(weight: torch.Tensor) -> torch.Tensor:
+    """Quantise-dequantise an (N, K) weight with a straight-through
+    gradient: the forward sees exactly the int8-representable weights the
+    serving path uses, the backward passes gradients through unchanged."""
+    q, s = quantize_weight(weight)
+    deq = (q.float() * s[:, None]).to(weight.dtype)
+    return weight + (deq - weight).detach()
+
+
+def fake_quant_rows(x: torch.Tensor) -> torch.Tensor:
+    """Per-row activation fake-quant with a straight-through gradient."""
+    q, s = quantize_rows(x)
+    deq = (q.float() * s).to(x.dtype)
+    return x + (deq - x).detach()
+
+
+def fake_quant_linear(x: torch.Tensor, weight: torch.Tensor,
+                      bias=None) -> torch.Tensor:
+    """The QAT form of a W8A8 linear: a float product over fake-quantised
+    rows and an (N, K) fake-quantised weight, straight-through gradients
+    on both, so training sees the serving path's int8 numerics."""
+    out = fake_quant_rows(x) @ fake_quant_weight(weight).to(x.dtype).t()
+    return out if bias is None else out + bias.to(x.dtype)
+
+
 class QuantDense(nn.Linear):
-    """Drop-in W8A8 replacement for ``nn.Linear`` at eval, with its
-    parameter names, so float checkpoints load unchanged. The weight is
-    quantised per output channel on every call; engine-build paths
-    quantise once instead (`infer/fused_vit.py`)."""
+    """Drop-in W8A8 replacement for ``nn.Linear``, with its parameter
+    names, so float checkpoints load unchanged. The weight is quantised per
+    output channel on every call; engine-build paths quantise once instead
+    (`infer/fused_vit.py`). ``fake=True`` makes it the QAT layer instead
+    (`fake_quant_linear`); that attribute alone decides which of the two a
+    call runs."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
-                 device=None, dtype=None):
+                 device=None, dtype=None, fake: bool = False):
         super().__init__(in_features, out_features, bias=bias,
                          device=resolve_device(device), dtype=dtype)
+        self.fake = fake
 
     def forward(self, x):
+        if self.fake:
+            return fake_quant_linear(x, self.weight, self.bias)
         wq, ws = quantize_weight(self.weight)
         return int8_linear(x, wq, ws, self.bias).to(x.dtype)
 
 
-def _training_slice(name):
-    def raiser(*args, **kwargs):
-        raise NotImplementedError(
-            f"{name} (QAT fake-quant) belongs to the training slice of the "
-            "port")
-    raiser.__name__ = name
-    return raiser
-
-
-fake_quant_weight = _training_slice("fake_quant_weight")
-fake_quant_rows = _training_slice("fake_quant_rows")
-fake_quant_per_image = _training_slice("fake_quant_per_image")
+def fake_quant_per_image(*args, **kwargs):
+    raise NotImplementedError(
+        "fake_quant_per_image (the QuantConv activation scheme) belongs to "
+        "the CNN slice of the port")
 
 
 class QuantConv(nn.Module):

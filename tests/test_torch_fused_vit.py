@@ -154,16 +154,17 @@ def test_snap_capacity_to_tiles():
         assert jfv.snap_capacity_to_tiles(k) == snapped
 
 
-@pytest.mark.parametrize("kw", [dict(fn="fake_quant_rows"),
+@pytest.mark.parametrize("kw", [dict(fn="fake_quant_per_image"),
                                 dict(fn="QuantConv")])
 def test_later_slices_raise(setup, kw):
-    """What of `ops/quant.py` the serving engine does not need still
-    raises: the QAT fake-quant (training slice) and `QuantConv` (CNN
-    slice). The engine itself no longer raises for head_gating or int8."""
+    """What of `ops/quant.py` belongs to the CNN slice still raises: the
+    per-image fake-quant and `QuantConv`. The row and weight fake-quant
+    (QAT) no longer raise, nor does the engine for head_gating or int8."""
     from laudnet_tpu_torch.ops import quant
 
-    with pytest.raises(NotImplementedError, match="slice"):
+    with pytest.raises(NotImplementedError, match="CNN slice"):
         getattr(quant, kw["fn"])(torch.zeros(2, 4))
+    assert quant.fake_quant_rows(torch.ones(2, 4)).shape == (2, 4)
     tfv.build_fused_vit(setup[2], head_gating=True, int8=True)
 
 

@@ -1,6 +1,7 @@
 """The CUDA kernels (`laudnet_tpu_torch/csrc/vit_block.cu`: the block B1,
-the segment B2, the W8A8 block B6 and the attention forward B4) against
-their plain PyTorch versions, in bf16 on the card. Marked ``cuda``; skips
+the segment B2, the W8A8 block B6 and the attention forward B4;
+`csrc/vit_attention_bwd.cu`: the attention backward B5) against their
+plain PyTorch versions, in bf16 on the card. Marked ``cuda``; skips
 without a card.
 
 Imports no JAX, so it runs on a machine that has none; there, skip the
@@ -16,6 +17,10 @@ masks must be equal exactly. The W8A8 block's integer sums are exact on
 both sides, so the same bound holds for it (a code that flips at a rounding
 tie moves an output by far less than an ulp); the attention forward differs
 from its plain version by the bf16 rounding of p, averaged over the keys.
+The attention backward rounds where its plain version rounds (P, dS and the
+gated dO), so the same four ulps of the largest gradient hold for dqkv; its
+dhead is an f32 sum of B*L*64 products and is held to 2e-3 of the largest
+entry.
 """
 
 import pytest
@@ -198,6 +203,47 @@ def test_new_kernels_refuse_what_they_do_not_take(card):
         vit_attention.fused_vit_attention(
             torch.zeros(1, 300, 384, device=card, dtype=torch.bfloat16),
             torch.ones(1, 300, device=card), None, 2, 0.125)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        vit_attention.fused_vit_attention(qkv.requires_grad_(), mask, None,
-                                          2, 0.125)
+    with pytest.raises(TypeError, match="cotangent"):
+        vit_attention._launch_bwd(qkv, mask, None,
+                                  torch.ones(2, 9, 128, device=card), 2,
+                                  0.125)                        # f32
+
+
+@pytest.mark.parametrize("gated", [False, True])
+@pytest.mark.parametrize("b,heads,l", [(4, 2, 23), (4, 3, 131), (2, 7, 256),
+                                       (128, 6, 197), (128, 7, 197)])
+def test_attention_backward_kernel_matches_plain(card, b, heads, l, gated):
+    """B5 through the Function's backward, at small shapes, the longest L,
+    and the DeiT-S and T2T training shapes."""
+    g = torch.Generator().manual_seed(l + heads)
+    d = heads * 64
+    qkv = torch.randn(b, l, 3 * d, generator=g).to(card, torch.bfloat16)
+    mask = (torch.rand(b, l, generator=g) > 0.3).float().to(card)
+    mask[:, 0] = 1.0
+    gate = _gate(g, b, heads, card) if gated else None
+    cot = torch.randn(b, l, d, generator=g).to(card, torch.bfloat16)
+    qkv.requires_grad_()
+    if gated:
+        gate.requires_grad_()
+    before = vit_attention.fused_vit_attention.bwd_launches
+    out = vit_attention.fused_vit_attention(qkv, mask, gate, heads, 0.125)
+    # a strided cotangent, as autograd hands over the gradient of a view
+    wide = torch.zeros(b, l, 2 * d, device=card, dtype=torch.bfloat16)
+    wide[..., :d] = cot
+    grads = torch.autograd.grad(out, (qkv, gate) if gated else (qkv,),
+                                wide[..., :d])
+    ref_dqkv, ref_dhead = vit_attention.reference_vit_attention_bwd(
+        qkv.detach(), mask, None if gate is None else gate.detach(), cot,
+        heads, 0.125)
+    torch.cuda.synchronize()
+    assert vit_attention.fused_vit_attention.bwd_launches == before + 1
+    assert grads[0].dtype == torch.bfloat16 and grads[0].shape == qkv.shape
+    err = (grads[0].float() - ref_dqkv.float()).abs().max().item()
+    assert err <= _tol(ref_dqkv), (err, _tol(ref_dqkv))
+    if gated:
+        assert grads[1].shape == (b, heads)
+        derr = (grads[1] - ref_dhead).abs().max().item()
+        assert derr <= 2e-3 * ref_dhead.abs().max().item()
+        # a closed head: zero dq, dk, dv, and a dgate that is not zero
+        closed = grads[0][0].reshape(l, 3, heads, 64)[:, :, 0]
+        assert not closed.any() and grads[1][0, 0] != 0

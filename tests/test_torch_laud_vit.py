@@ -1,10 +1,13 @@
-"""Port parity for the LAUD-ViT eval forward
+"""Port parity for the LAUD-ViT forward, eval and training
 (`laudnet_tpu_torch/models/laud_vit.py`) against flax ``LAUDViT.apply``,
 with the weights carried across by
 `laudnet_tpu_torch/convert/from_jax.py::load_flax_variables`. Policy
 biases are zeroed so that the token, head and layer gates actually close
 some decisions. Both sides f32: logits to atol 1e-4, densities and FLOPs
-to rtol 1e-5."""
+to rtol 1e-5.
+
+The training forward is held against flax in
+`tests/test_torch_laud_vit_train.py`."""
 
 import jax
 import jax.numpy as jnp
@@ -15,6 +18,7 @@ import torch
 from laudnet_tpu.models import laud_vit as jlv
 from laudnet_tpu_torch.convert.from_jax import load_flax_variables
 from laudnet_tpu_torch.models import laud_vit as tlv
+from laudnet_tpu_torch.ops.gating import GumbelNoise
 
 torch.set_num_threads(1)
 GEOM = dict(depth=2, dim=256, num_heads=4, mlp_ratio=2.0, num_classes=11)
@@ -115,15 +119,47 @@ def test_load_flax_variables_is_strict():
         load_flax_variables(model, bad)
 
 
+TRAIN_GEOM = dict(depth=2, dim=128, num_heads=2, mlp_ratio=2.0,
+                  num_classes=11)
+
+
+def test_eval_paths_write_nothing_in_place():
+    """The class-token pin and the capacity rank are out of place: an eval
+    forward under grad mode (no ``no_grad``) with capacities backpropagates,
+    which an in-place write into the gate's output would break."""
+    x = _images(seed=27)[:, :32, :32]
+    model = tlv.LAUDViT(**TRAIN_GEOM, img_size=32, device="cpu",
+                        token_capacity=(1.0, 0.5),
+                        generator=torch.Generator().manual_seed(0))
+    out = model(torch.from_numpy(x))
+    out.logits.sum().backward()
+    assert model.blocks[0].fc1.weight.grad.abs().sum() > 0
+
+
 @pytest.mark.parametrize("kw", [dict(linear_impl="int8_qat"),
                                 dict(attn_impl="fused"),
                                 dict(linear_impl="int8")])
 def test_later_slices_raise(kw):
-    """The training slice's parts raise: the QAT linears at construction,
-    a training forward on any eval-only implementation."""
-    with pytest.raises(NotImplementedError, match="training slice"):
-        model = tlv.LAUDViT(**GEOM, img_size=64, device="cpu", **kw)
-        model(torch.zeros(1, 64, 64, 3), training=True)
+    """Once the training slice's parts raised here; now each of them
+    trains: the QAT linears, the fused attention under grad, and 'int8'
+    (which trains dense and quantises at eval only). What still raises
+    is a training forward without a noise source."""
+    model = tlv.LAUDViT(**TRAIN_GEOM, img_size=32, device="cpu", **kw,
+                        generator=torch.Generator().manual_seed(1))
+    x = torch.from_numpy(_images(seed=29)[:, :32, :32])
+    with pytest.raises(ValueError, match="noise source"):
+        model(x, 1.0, training=True)
+    out = model(x, 1.0, training=True, noise=GumbelNoise.seeded(3))
+    out.logits.sum().backward()
+    assert torch.isfinite(out.logits).all()
+    assert model.blocks[1].proj.weight.grad.abs().sum() > 0
+    if kw.get("linear_impl") == "int8":   # trains dense, serves W8A8
+        dense = tlv.LAUDViT(**TRAIN_GEOM, img_size=32, device="cpu")
+        dense.load_state_dict(model.state_dict())
+        ref = dense(x, 1.0, training=True, noise=GumbelNoise.seeded(3))
+        assert torch.equal(out.logits, ref.logits)
+        with torch.no_grad():
+            assert not torch.equal(model(x).logits, dense(x).logits)
 
 
 def test_training_raises_and_generator_init_is_seeded():
@@ -135,7 +171,7 @@ def test_training_raises_and_generator_init_is_seeded():
         assert torch.equal(pa, pb), name
     # policy gates start open: keep-logit +2, skip-logit -2
     assert a.blocks[0].token_policy.bias.tolist() == [2.0, -2.0]
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="noise source"):
         a(torch.zeros(1, 64, 64, 3), training=True)
 
 
@@ -210,11 +246,12 @@ def test_fused_attention_eval_equals_reference_eval(config):
                                atol=1e-4)
     np.testing.assert_allclose(outs["fused"].numpy(),
                                outs["reference"].numpy(), atol=1e-5)
-    # outside no_grad the fused path refuses: its backward is not ported
-    with pytest.raises(NotImplementedError, match="training slice"):
-        model_f = tlv.LAUDViT(**GEOM, **kw, attn_impl="fused", img_size=64,
-                              device="cpu").eval()
-        model_f(torch.from_numpy(x))
+    # outside no_grad the fused path gives the same values and a graph
+    model_f = tlv.LAUDViT(**GEOM, **kw, attn_impl="fused", img_size=64,
+                          device="cpu").eval()
+    load_flax_variables(model_f, params)
+    live = model_f(torch.from_numpy(x)).logits
+    assert live.requires_grad and torch.equal(live.detach(), outs["fused"])
 
 
 @pytest.mark.parametrize("config", ["token_only", "head_only"])

@@ -17,7 +17,7 @@ REPO = Path(__file__).resolve().parent.parent
 
 _IMPORT_ALL = """
 import sys
-for name in ("jax", "jaxlib", "flax", "optax", "laudnet_tpu"):
+for name in ("jax", "jaxlib", "flax", "optax", "orbax", "laudnet_tpu"):
     sys.modules[name] = None
 import importlib, pkgutil
 import laudnet_tpu_torch
@@ -34,10 +34,17 @@ def test_every_module_imports_without_jax():
     proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 13  # package, 4 subpackages, modules
+    # package, 6 subpackages, modules: every file is walked and imported
     names = {p.relative_to(REPO).with_suffix("").as_posix().replace("/", ".")
              for p in (REPO / "laudnet_tpu_torch").rglob("*.py")}
-    for new in ("device", "ops.quant", "ops.vit_attention", "models.t2t"):
+    names = {n[:-len(".__init__")] if n.endswith(".__init__") else n
+             for n in names}
+    assert int(proc.stdout.strip()) == len(names) >= 27
+    for new in ("device", "ops.quant", "ops.vit_attention", "models.t2t",
+                "ops.gating", "utils.metrics", "utils.logging_utils",
+                "utils.config", "train.schedules", "train.losses",
+                "train.hyperparams", "train.optim", "train.trainer",
+                "train.checkpoint", "train.main"):
         assert f"laudnet_tpu_torch.{new}" in names
 
 
@@ -99,9 +106,15 @@ def test_kernel_input_checks_raise_before_any_pointer_is_passed():
 
 
 def test_ctypes_signatures_match_the_cuda_source():
-    src = (_build.CSRC / "vit_block.cu").read_text()
+    sources = sorted(_build.CSRC.glob("*.cu"))
+    assert [s.name for s in sources] == ["vit_attention_bwd.cu",
+                                         "vit_block.cu"]
+    src = "".join(s.read_text() for s in sources)
     decls = dict(re.findall(r"\nint (lt_\w+)\(([^)]*)\)", src))
     assert set(decls) == set(_build._SIGNATURES)
+    assert "lt_attention_bwd" in decls
+    # the shared header is hashed with the sources, so editing it rebuilds
+    assert _build.CSRC / "mma_common.cuh" in _build._sources()
     for name, argtypes in _build._SIGNATURES.items():
         assert decls[name].count(",") + 1 == len(argtypes), name
 
@@ -178,6 +191,14 @@ def test_new_wrappers_count_nothing_on_the_cpu():
     assert att.shape == (b, l, d)
     assert vit_block.fused_vit_block_int8.launches == 0
     assert vit_block.fused_vit_block.launches == 0
+    assert vit_attention.fused_vit_attention.launches == 0
+    # the backward of the attention Function on CPU tensors is the plain
+    # backward: no backward launch is counted either
+    qkv = torch.randn(b, l, 3 * d, generator=g).requires_grad_()
+    vit_attention.fused_vit_attention(qkv, mask, gate, h, 0.125).sum(
+    ).backward()
+    assert qkv.grad is not None and qkv.grad.abs().sum() > 0
+    assert vit_attention.fused_vit_attention.bwd_launches == 0
     assert vit_attention.fused_vit_attention.launches == 0
     with pytest.raises(ValueError, match="no kernel"):
         vit_block.fused_vit_block_int8(x.to("meta"), mask, mask, qp,

@@ -207,5 +207,124 @@ def test_int8_block_is_close_to_the_float_block(block):
 @pytest.mark.parametrize("name", ["fake_quant_weight", "fake_quant_rows",
                                   "fake_quant_per_image", "QuantConv"])
 def test_training_and_cnn_parts_raise(name):
-    with pytest.raises(NotImplementedError, match="slice of the port"):
-        getattr(tq, name)(torch.zeros(2, 2))
+    """The CNN slice's parts raise; the QAT fake-quant of rows and weights
+    (once raising too) now quantise and dequantise: an int8-representable
+    input comes back unchanged."""
+    if name in ("fake_quant_per_image", "QuantConv"):
+        with pytest.raises(NotImplementedError, match="CNN slice of the port"):
+            getattr(tq, name)(torch.zeros(2, 2))
+        return
+    x = torch.tensor([[127.0, -64.0, 3.0], [2.0, 0.0, -127.0]])
+    assert torch.equal(getattr(tq, name)(x), x)
+
+
+# --- QAT: fake-quant values and straight-through gradients vs JAX ----------
+
+def _jax_value_and_grad(fn, x, cot):
+    import jax
+    out, vjp = jax.vjp(fn, jnp.asarray(x))
+    return np.asarray(out), np.asarray(vjp(jnp.asarray(cot))[0])
+
+
+def test_fake_quant_rows_matches_jax():
+    """Values to 1e-6 (one f32 multiply of exact codes by the scale) and the
+    straight-through gradient exactly: the cotangent passes unchanged."""
+    x = _rows(seed=7)
+    cot = np.random.default_rng(8).standard_normal(x.shape).astype(np.float32)
+    ref, ref_grad = _jax_value_and_grad(jq.fake_quant_rows, x, cot)
+    t = torch.from_numpy(x).requires_grad_()
+    out = tq.fake_quant_rows(t)
+    out.backward(torch.from_numpy(cot))
+    np.testing.assert_allclose(out.detach().numpy(), ref, rtol=1e-6,
+                               atol=1e-7)
+    np.testing.assert_array_equal(t.grad.numpy(), ref_grad)
+    np.testing.assert_array_equal(ref_grad, cot)
+    # the values are the dequantised codes: at most half a step from x
+    q, s = tq.quantize_rows(torch.from_numpy(x))
+    np.testing.assert_allclose(out.detach().numpy(), (q.float() * s).numpy(),
+                               atol=1e-7)
+    assert (out.detach() - t.detach()).abs().max() <= 0.5001 * s.max()
+
+
+def test_fake_quant_rows_bf16_rounds_deq_to_the_input_dtype():
+    x = _rows(seed=9)
+    ref = jq.fake_quant_rows(jnp.asarray(x, jnp.bfloat16))
+    out = tq.fake_quant_rows(torch.from_numpy(x).to(torch.bfloat16))
+    assert out.dtype == torch.bfloat16
+    # one bf16 ulp of the largest value: x + (deq - x) re-rounds in bf16
+    np.testing.assert_allclose(out.float().numpy(),
+                               np.asarray(ref.astype(jnp.float32)),
+                               atol=2.0 ** -7 * 4, rtol=0)
+
+
+def test_fake_quant_weight_matches_jax():
+    """The port's weight is the flax kernel transposed; values to 1e-7
+    and the cotangent passes unchanged."""
+    rng = np.random.default_rng(11)
+    w = (rng.standard_normal((96, 40)) * 0.05).astype(np.float32)  # (K, N)
+    cot = rng.standard_normal(w.shape).astype(np.float32)
+    ref, ref_grad = _jax_value_and_grad(jq.fake_quant_weight, w, cot)
+    t = torch.from_numpy(w.T.copy()).requires_grad_()
+    out = tq.fake_quant_weight(t)
+    out.backward(torch.from_numpy(cot.T.copy()))
+    np.testing.assert_allclose(out.detach().numpy(), ref.T, rtol=1e-6,
+                               atol=1e-8)
+    np.testing.assert_array_equal(t.grad.numpy(), ref_grad.T)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_quant_dense_fake_matches_jax(dt):
+    """``QuantDense(fake=True)`` against flax's, same weights: output and
+    the gradients of input, kernel and bias. f32: 1e-5 (f32 summation
+    order). bf16 input: two bf16 ulps of the largest output (the product
+    accumulates in another order before its one rounding), gradients to
+    one bf16 ulp of their largest entry."""
+    import jax
+
+    rng = np.random.default_rng(12)
+    x = _rows(seed=12, rows=6, k=64)
+    k = (rng.standard_normal((64, 24)) * 0.1).astype(np.float32)
+    b = rng.standard_normal((24,)).astype(np.float32) * 0.1
+    cot = rng.standard_normal((6, 24)).astype(np.float32)
+    jdt, tdt = ((jnp.float32, torch.float32) if dt == "f32"
+                else (jnp.bfloat16, torch.bfloat16))
+    jlayer = jq.QuantDense(24, fake=True)
+
+    def f(params, xx):
+        out = jlayer.apply({"params": params}, xx)
+        return (out.astype(jnp.float32) * cot).sum(), out
+
+    params = {"kernel": jnp.asarray(k), "bias": jnp.asarray(b)}
+    (_, ref), (gp, gx) = jax.value_and_grad(f, argnums=(0, 1), has_aux=True)(
+        params, jnp.asarray(x, jdt))
+    layer = tq.QuantDense(64, 24, device="cpu", fake=True)
+    with torch.no_grad():
+        layer.weight.copy_(torch.from_numpy(k.T.copy()))
+        layer.bias.copy_(torch.from_numpy(b))
+    t = torch.from_numpy(x).to(tdt).requires_grad_()
+    out = layer(t)
+    (out.float() * torch.from_numpy(cot)).sum().backward()
+    assert out.dtype == tdt
+    ref = np.asarray(ref.astype(jnp.float32))
+    if dt == "f32":
+        tol = dict(atol=1e-5, rtol=1e-5)
+    else:
+        ulp = 2.0 ** (np.floor(np.log2(np.abs(ref).max())) - 7)
+        tol = dict(atol=2 * ulp, rtol=0)
+    np.testing.assert_allclose(out.detach().float().numpy(), ref, **tol)
+    # bf16 gradients: one bf16 ulp of each gradient's largest entry (the
+    # bias's is a sum of the cotangent's rows rounded to bf16)
+    for got, want in ((t.grad.float().numpy(), gx.astype(jnp.float32)),
+                      (layer.weight.grad.numpy(), gp["kernel"].T),
+                      (layer.bias.grad.numpy(), gp["bias"])):
+        want = np.asarray(want)
+        gtol = tol if dt == "f32" else dict(
+            atol=2.0 ** (np.floor(np.log2(np.abs(want).max())) - 7), rtol=0)
+        np.testing.assert_allclose(got, want, **gtol)
+    # the same parameters with ``fake`` off are the real W8A8 product
+    layer.fake = False
+    with torch.no_grad():
+        real = layer(t.detach())
+        wq, ws = tq.quantize_weight(layer.weight)
+        assert torch.equal(real, tq.int8_linear(t.detach(), wq, ws,
+                                                layer.bias).to(tdt))

@@ -1,0 +1,187 @@
+"""The port's training CLI (`laudnet_tpu_torch/train/main.py`) on the CPU:
+the arguments of the JAX CLI's smoke test (`tests/test_train_cli.py`:
+``laud_deit_tiny``, 2 steps, batch 8, 32x32, 10 classes) plus ``--device
+cpu``. It writes what the JAX CLI writes, resumes from its own checkpoint,
+trains the QAT variant, evaluates a checkpoint it wrote, and refuses the
+flags of later slices."""
+
+import csv
+import inspect
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from laudnet_tpu.train import main as jmain
+from laudnet_tpu_torch.train import main as tmain
+from laudnet_tpu_torch.train.checkpoint import CheckpointManager
+from laudnet_tpu_torch.train.hyperparams import RECIPES, get_hyperparams
+from laudnet_tpu_torch.utils.config import Config
+
+torch.set_num_threads(1)
+BASE = ["--arch", "laud_deit_tiny", "--device", "cpu",
+        "--steps_per_epoch", "2", "--batch_size", "8", "--input_size", "32",
+        "--num_classes", "10", "--target_rate", "0.5", "--print_freq", "1"]
+
+
+def test_train_main_vit_smoke_and_auto_resume(tmp_path):
+    best = tmain.main(BASE + ["--epochs", "1", "--train_url", str(tmp_path)])
+    assert np.isfinite(best)
+    for name in ("train.log", "log.txt", "best_result.txt",
+                 "all_density_latest.txt", "all_density_best.txt"):
+        assert (tmp_path / name).exists(), name
+    dens = np.loadtxt(tmp_path / "all_density_latest.txt")
+    assert dens.shape == (4, 12)    # token/head/attn/mlp rows x depth
+    assert ((0 <= dens) & (dens <= 1)).all()
+    with open(tmp_path / "log.txt") as f:
+        rows = list(csv.reader(f))
+    # the JAX CLI's header, read from its source
+    assert all(f'"{col}"' in inspect.getsource(jmain.main)
+               for col in rows[0])
+    assert rows[0] == tmain.CSV_HEADER and len(rows) == 2
+    assert all(np.isfinite(float(v)) for v in rows[1])
+    assert len(open(tmp_path / "best_result.txt").read().split()) == 3
+    ckpt = CheckpointManager(str(tmp_path / "ckpt"))
+    assert ckpt.latest_step() == 2
+    assert os.path.exists(tmp_path / "ckpt" / "meta_2.json")
+    assert os.path.exists(tmp_path / "ckpt" / "best.json")
+
+    # a second call resumes at the saved step and trains epoch 1 only
+    tmain.main(BASE + ["--epochs", "2", "--train_url", str(tmp_path)])
+    log = open(tmp_path / "train.log").read()
+    assert "auto-resumed from step 2" in log
+    assert "epoch 1 [0/2]" in log and "epoch 0 [" not in log
+    assert ckpt.latest_step() == 4
+    with open(tmp_path / "log.txt") as f:
+        assert [r[0] for r in csv.reader(f)] == ["epoch", "0", "1"]
+
+    # --evaluate_from a checkpoint this CLI wrote
+    top1 = tmain.main(BASE + ["--train_url", str(tmp_path / "eval"),
+                              "--evaluate_from",
+                              str(tmp_path / "ckpt" / "step_4.pt")])
+    assert 0.0 <= top1 <= 100.0
+    assert "evaluate: top1" in open(tmp_path / "eval" / "train.log").read()
+
+
+@pytest.mark.parametrize("extra", [
+    ["--vit_linear", "int8_qat"],
+    ["--vit_attn", "fused", "--amp", "--vit_skip", "token,head"],
+    ["--optimizer", "RMSprop", "--lr_mult", "0.1"],
+    ["--no_decay_biases", "--temp_scheduler", "cosine"]],
+    ids=["int8_qat", "fused_amp", "rmsprop", "no_decay_biases"])
+def test_train_main_variants(tmp_path, extra):
+    best = tmain.main(BASE + ["--epochs", "1", "--train_url", str(tmp_path)]
+                      + extra)
+    assert np.isfinite(best)
+    dens = np.loadtxt(tmp_path / "all_density_latest.txt")
+    assert dens.shape == (4, 12)
+    if "--vit_skip" in extra:           # no layer gates: densities are 1
+        assert (dens[2:] == 1.0).all()
+
+
+@pytest.mark.parametrize("flags", [
+    ["--arch", "uni_resnet50"], ["--arch", "lad_regnet_y_400mf"],
+    ["--conv_impl", "int8_qat"], ["--data_url", "/data/imagenet"],
+    ["--finetune_from", "deit.pth"], ["--teacher_path", "deit.pth"],
+    ["--tp", "2"], ["--fsdp"], ["--pp", "2"], ["--dist_process_id", "0"],
+    ["--autoaugment"]],
+    ids=lambda f: f[-2].lstrip("-") if len(f) > 1 else f[0].lstrip("-"))
+def test_flags_of_later_slices_raise(tmp_path, flags):
+    with pytest.raises(NotImplementedError, match="slice of the port"):
+        tmain.main(BASE + ["--train_url", str(tmp_path)] + flags)
+    assert not (tmp_path / "train.log").exists()    # refused before writing
+
+
+def test_flags_and_defaults_are_the_jax_cli_s():
+    ours = vars(tmain.parse_args([]))
+    theirs = vars(jmain.parse_args([]))
+    assert ours.pop("device") is None
+    assert ours == theirs
+    assert tmain.VIT_ARCHS == jmain.VIT_ARCHS
+    assert tmain.arch_family("laud_t2t_vit_19") == "vit"
+
+
+def test_fused_attention_without_amp_is_refused_on_a_card_only():
+    """f32 fused attention raises on CUDA (the kernels take bf16); on the
+    CPU the plain versions run at f32, so it trains."""
+    args = tmain.parse_args(BASE + ["--vit_attn", "fused", "--device",
+                                    "cuda"])
+    with pytest.raises(ValueError, match="needs --amp"):
+        tmain.build_training(args, log=lambda *_: None)
+
+
+def test_without_a_device_flag_the_cli_asks_for_cuda(tmp_path):
+    """No ``--device``: the card. Without one PyTorch's own error comes
+    through; nothing falls back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the CLI would train on it")
+    argv = [a for a in BASE if a not in ("--device", "cpu")]
+    with pytest.raises((AssertionError, RuntimeError),
+                       match="(?i)cuda|nvidia"):
+        tmain.main(argv + ["--epochs", "1", "--train_url", str(tmp_path)])
+
+
+def test_synthetic_batches_and_recipes_match_jax():
+    from laudnet_tpu.data import synthetic_batches as jsyn
+    from laudnet_tpu.train import hyperparams as jh
+
+    for (a, b), (c, d) in zip(tmain.synthetic_batches(3, 8, 10, 2, seed=4),
+                              jsyn(3, 8, 10, 2, seed=4)):
+        assert a.dtype == np.float32 and b.dtype == np.int32
+        np.testing.assert_array_equal(a, c)
+        np.testing.assert_array_equal(b, d)
+    assert sorted(RECIPES) == sorted(jh.RECIPES)
+    for k in RECIPES:
+        assert vars(get_hyperparams(k)) == vars(jh.get_hyperparams(k))
+    with pytest.raises(KeyError, match="unknown hyperparams_set_index"):
+        get_hyperparams(99)
+
+
+def test_config_file_selects_the_recipe(tmp_path):
+    base = tmp_path / "base.py"
+    base.write_text("train_cfg = dict(hyperparams_set_index=3)\nnote = 'b'\n")
+    child = tmp_path / "child.py"
+    child.write_text("_base_ = 'base.py'\nnote = 'c'\n")
+    cfg = Config.fromfile(str(child))
+    assert cfg.train_cfg.hyperparams_set_index == 3 and cfg.note == "c"
+    args = tmain.parse_args(BASE + ["--config", str(child)])
+    tr = tmain.build_training(args, log=lambda *_: None)
+    assert tr.cfg.base_lr == get_hyperparams(3).lr == 0.08
+    assert tr.epochs == 100 and tr.batch_size == 8
+    repo_cfg = os.path.join(os.path.dirname(os.path.dirname(__file__)),
+                            "configs", "finetune_100eps_1024bs_lr0x08.py")
+    assert Config.fromfile(repo_cfg).train_cfg["hyperparams_set_index"] == 3
+
+
+def test_checkpoint_manager_keeps_two_and_the_best(tmp_path):
+    from laudnet_tpu_torch.train.trainer import TrainState
+
+    def state(step, value):
+        lin = torch.nn.Linear(2, 2)
+        with torch.no_grad():
+            lin.weight.fill_(value)
+        opt = torch.optim.SGD(lin.parameters(), lr=0.1, momentum=0.9)
+        lin.weight.grad = torch.ones_like(lin.weight)
+        opt.step()
+        return TrainState(step, lin, opt)
+
+    mgr = CheckpointManager(str(tmp_path))
+    assert mgr.latest_step() is None
+    with pytest.raises(FileNotFoundError):
+        mgr.restore(state(0, 0.0))
+    mgr.save(1, state(1, 1.0), metadata={"epoch": 0}, is_best=True)
+    mgr.save(2, state(2, 2.0), metadata={"epoch": 1})
+    mgr.save(3, state(3, 3.0), metadata={"epoch": 2})
+    assert mgr.all_steps() == [2, 3]                    # max_to_keep=2
+    assert not os.path.exists(tmp_path / "meta_1.json")
+    fresh = state(0, 0.0)
+    _, meta = mgr.restore(fresh)
+    assert fresh.step == 3 and meta == {"epoch": 2}
+    assert torch.allclose(fresh.model.weight, torch.full((2, 2), 2.9))
+    buf = fresh.optimizer.state_dict()["state"][0]["momentum_buffer"]
+    assert torch.equal(buf, torch.ones(2, 2))
+    best = state(0, 0.0)
+    _, meta = mgr.restore_best(best)                    # survived the GC
+    assert best.step == 1 and meta == {"step": 1, "epoch": 0}
+    mgr.close()

@@ -163,5 +163,5 @@ def test_binary_gate_matches_jax_with_ties():
     out = gating.binary_gate(torch.from_numpy(logits))
     np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
     assert out[:, :2].eq(1.0).all()
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="noise source"):
         gating.binary_gate(torch.from_numpy(logits), 1.0, training=True)
