@@ -1,12 +1,20 @@
-"""Loads a flax LAUD-ViT parameter tree into the port's `LAUDViT`.
+"""Loads flax variables into the port's models (`LAUDViT`, `LAUDResNet`,
+`ResNet`).
 
-Takes the JAX ``variables["params"]`` tree with numpy leaves and fills the
-port model strictly: every flax leaf is consumed and every port parameter
-is set, or it raises. Conversions:
+Takes the JAX ``variables`` dict (``params`` and, for the CNNs,
+``batch_stats``) with numpy leaves, or a bare ``params`` tree, and fills
+the port model strictly: every flax leaf is consumed and every port
+parameter and BatchNorm statistic is set, or it raises. Conversions:
 
 * Dense ``kernel`` (in, out) -> Linear ``weight`` (out, in);
 * Conv ``kernel`` HWIO -> Conv2d ``weight`` OIHW;
-* LayerNorm ``scale``/``bias`` -> ``weight``/``bias``;
+* LayerNorm and BatchNorm ``scale``/``bias`` -> ``weight``/``bias``;
+* ``batch_stats`` ``mean``/``var`` -> the buffers ``running_mean``/
+  ``running_var`` (flax keeps the biased variance, and so does the port's
+  `ops/norm.py::BatchNorm`, so the numbers carry over as they are);
+* the CNN blocks keep their flax names (``layer{s}_{b}``,
+  ``downsample_conv``, ``downsample_bn``, ``masker_spatial``,
+  ``masker_channel``);
 * ``cls_token``, ``pos_embed`` and biases as they are;
 * the ``t2t_stem`` subtree (``attn1``/``attn2``: ``norm1``, ``kqv``,
   ``proj``, ``norm2``, ``fc1``, ``fc2``, and ``project``) by the same
@@ -24,7 +32,8 @@ Flax names the blocks ``block_{i}``; the port holds them in
 
 `to_flax_tree` is the inverse: the port's parameters (or their gradients)
 back in the flax tree's layout as numpy, so a test can hold a train step's
-updated parameters and gradients against JAX's leaf by leaf.
+updated parameters and gradients against JAX's leaf by leaf;
+`to_flax_batch_stats` does the same for the BatchNorm statistics.
 """
 
 from __future__ import annotations
@@ -35,6 +44,10 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 from torch import nn
+
+from laudnet_tpu_torch.ops.norm import BatchNorm
+
+_STATS = {"mean": "running_mean", "var": "running_var"}
 
 
 def _flatten(tree: Mapping[str, Any], prefix: str = ""):
@@ -63,21 +76,42 @@ def _convert(arr: np.ndarray, kind: str) -> np.ndarray:
     return arr
 
 
+def _split_variables(variables_np):
+    """``(params, batch_stats)`` of a variables dict or a bare params
+    tree."""
+    if "params" in variables_np and set(variables_np) <= {"params",
+                                                          "batch_stats"}:
+        return variables_np["params"], variables_np.get("batch_stats", {})
+    return variables_np, {}
+
+
 @torch.no_grad()
 def load_flax_variables(model: nn.Module,
                         variables_np: Mapping[str, Any]) -> nn.Module:
-    """Copies the flax ``params`` tree ``variables_np`` into ``model`` (in
-    the model's dtype and device) and returns the model."""
-    params = dict(model.named_parameters())
-    unset = set(params)
-    for path, arr in _flatten(variables_np):
-        name, kind = _port_name(path)
-        if name not in params:
+    """Copies the flax ``variables_np`` (``{"params": ..., "batch_stats":
+    ...}``, or a bare ``params`` tree for a model without BatchNorm) into
+    ``model`` (in the model's dtype and device) and returns the model."""
+    params_tree, stats_tree = _split_variables(variables_np)
+    targets = dict(model.named_parameters())
+    targets.update((name, buf) for name, buf in model.named_buffers()
+                   if name.rpartition(".")[2] in _STATS.values())
+    leaves = [(path, arr, *_port_name(path))
+              for path, arr in _flatten(params_tree)]
+    for path, arr in _flatten(stats_tree):
+        module, _, leaf = path.rpartition(".")
+        if leaf not in _STATS:
+            raise KeyError(f"batch_stats leaf {path!r} is neither mean nor "
+                           f"var")
+        leaves.append((f"batch_stats.{path}", arr,
+                       f"{module}.{_STATS[leaf]}", leaf))
+    unset = set(targets)
+    for path, arr, name, kind in leaves:
+        if name not in targets:
             raise KeyError(f"flax leaf {path!r} has no port parameter "
                            f"{name!r}")
         if name not in unset:
             raise KeyError(f"port parameter {name!r} set twice")
-        target = params[name]
+        target = targets[name]
         if arr.dtype.name == "bfloat16":  # ml_dtypes: torch cannot wrap it
             arr = arr.astype(np.float32)
         value = np.ascontiguousarray(_convert(arr, kind))
@@ -93,11 +127,18 @@ def load_flax_variables(model: nn.Module,
     return model
 
 
+def _set_leaf(tree: dict, module_path: str, leaf: str, arr) -> None:
+    node = tree
+    for key in [k for k in module_path.split(".") if k]:
+        node = node.setdefault(key, {})
+    node[leaf] = np.ascontiguousarray(arr)
+
+
 def to_flax_tree(model: nn.Module, grads: bool = False) -> dict:
     """The model's parameters (``grads``: their ``.grad``; a parameter
     without one gives zeros) as a nested dict in the flax ``params`` layout
     with f32 numpy leaves: Linear ``weight`` (out, in) -> ``kernel``
-    (in, out), Conv2d OIHW -> HWIO, LayerNorm ``weight`` -> ``scale``,
+    (in, out), Conv2d OIHW -> HWIO, LayerNorm and BatchNorm ``weight`` -> ``scale``,
     ``blocks.{i}`` -> ``block_{i}``; the rest as it is."""
     kinds = {name: type(m) for name, m in model.named_modules()}
     tree: dict = {}
@@ -109,15 +150,25 @@ def to_flax_tree(model: nn.Module, grads: bool = False) -> dict:
         module, _, leaf = name.rpartition(".")
         kind = kinds.get(module)
         if leaf == "weight" and kind is not None:
-            if issubclass(kind, nn.LayerNorm):
+            if issubclass(kind, (nn.LayerNorm, BatchNorm)):
                 leaf = "scale"
             elif issubclass(kind, nn.Conv2d):
                 leaf, arr = "kernel", arr.transpose(2, 3, 1, 0)
             elif issubclass(kind, nn.Linear):
                 leaf, arr = "kernel", arr.T
         path = re.sub(r"^blocks\.(\d+)(\.|$)", r"block_\1\2", module)
-        node = tree
-        for key in [k for k in path.split(".") if k]:
-            node = node.setdefault(key, {})
-        node[leaf] = np.ascontiguousarray(arr)
+        _set_leaf(tree, path, leaf, arr)
+    return tree
+
+
+def to_flax_batch_stats(model: nn.Module) -> dict:
+    """The model's BatchNorm statistics as a nested dict in the flax
+    ``batch_stats`` layout (``mean``/``var``, f32 numpy)."""
+    back = {v: k for k, v in _STATS.items()}
+    tree: dict = {}
+    for name, buf in model.named_buffers():
+        module, _, leaf = name.rpartition(".")
+        if leaf in back:
+            _set_leaf(tree, module, back[leaf],
+                      buf.detach().float().cpu().numpy())
     return tree

@@ -45,6 +45,9 @@ _SIGNATURES = {
     # qkv, key_mask, head_gate, dout, dqkv, dhead, b, l, num_heads, sm_scale,
     # stream
     "lt_attention_bwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P),
+    # x1, identity, slots, n_valid, selected, w2t, a2, b2, w3t, a3, b3, mid,
+    # out, b, h, w, c, co, patch, max_slots, stream
+    "lt_masked_tail": (_P,) * 13 + (_I,) * 7 + (_P,),
 }
 
 

@@ -13,8 +13,14 @@ Run without ``--data_url`` to train on synthetic data::
         --vit_attn fused --amp --epochs 1 --steps_per_epoch 8 \\
         --batch_size 128
 
-This slice trains the ViT family on synthetic batches. The CNN archs,
-``--conv_impl int8_qat``, ``--data_url``, ``--finetune_from``,
+or, for the CNN flagship (LAUD-ResNet-50 distilled from a dense
+ResNet-50)::
+
+    python -m laudnet_tpu_torch.train.main --arch uni_resnet50 --amp \
+        --epochs 1 --steps_per_epoch 8 --batch_size 128
+
+The ViT family and the LAUD-ResNets train on synthetic batches. The
+LAUD-RegNet archs, ``--data_url``, ``--finetune_from``,
 ``--teacher_path``, ``--tp/--fsdp/--pp`` and ``--dist_*`` are parsed and
 raise `NotImplementedError` naming the slice that brings them.
 """
@@ -147,10 +153,15 @@ def _refuse_later_slices(args) -> None:
         raise NotImplementedError(
             f"{what} belongs to {which} of the port, not to this one")
 
-    if arch_family(args.arch) != "vit":
-        later(f"--arch {args.arch}", "the CNN slice")
-    if args.conv_impl != "dense":
-        later("--conv_impl int8_qat", "the CNN slice")
+    family = arch_family(args.arch)
+    if family == "regnet":
+        later(f"--arch {args.arch}", "the RegNet slice")
+    if family == "vit" and args.conv_impl != "dense":
+        raise SystemExit("--conv_impl applies to LAUD-ResNets; for ViT QAT "
+                         "use --vit_linear int8_qat")
+    if family != "vit" and args.vit_linear != "dense":
+        raise SystemExit("--vit_linear applies to ViT archs; for LAUD-ResNet "
+                         "QAT use --conv_impl int8_qat")
     if args.data_url is not None:
         later("--data_url (real ImageNet input)", "the data slice")
     if args.colorjitter or args.autoaugment or args.change_light:
@@ -179,9 +190,17 @@ def synthetic_batches(batch_size: int, size: int = 224,
         )
 
 
+def _stage_list(spec: str, cast=str):
+    return tuple(cast(v) for v in spec.split("-"))
+
+
 def _density_rows(s):
-    """The 4 x depth ``all_density`` matrix: token/head/attn/mlp per ViT
-    block."""
+    """The 4 x blocks ``all_density`` matrix: s3/s2/s1/channel per CNN
+    block, or token/head/attn/mlp per ViT block."""
+    if "spatial_s3" in s:
+        return np.stack([
+            np.concatenate([v.float().cpu().numpy() for v in s[k]])
+            for k in ("spatial_s3", "spatial_s2", "spatial_s1", "channel_s")])
     return np.stack([s[k].float().cpu().numpy() for k in (
         "token_density", "head_density", "attn_density", "mlp_density")])
 
@@ -221,6 +240,7 @@ def build_training(args, log=print) -> Training:
     from laudnet_tpu_torch.train.trainer import (
         TrainConfig, TrainState, make_eval_step, make_train_step)
     from laudnet_tpu_torch.utils.config import Config
+    from laudnet_tpu_torch.utils.flops import resnet_full_flops
 
     _refuse_later_slices(args)
     set_index = args.hyperparams_set_index
@@ -240,25 +260,51 @@ def build_training(args, log=print) -> Training:
     # mixed precision: student AND teacher compute in bf16; the losses
     # reduce in f32
     compute_dtype = torch.bfloat16 if args.amp else None
-    skips = set(args.vit_skip.split(","))
+    family = arch_family(args.arch)
     ctor = getattr(models, args.arch)
-    common = dict(num_classes=args.num_classes, attn_impl=args.vit_attn,
-                  compute_dtype=compute_dtype, device=device)
-    if args.arch != "laud_t2t_vit_19":  # the T2T stem's geometry is fixed
-        common["img_size"] = args.input_size
-    model = ctor(token_skip="token" in skips, head_skip="head" in skips,
-                 layer_skip="layer" in skips, linear_impl=args.vit_linear,
-                 generator=torch.Generator(device).manual_seed(args.seed),
-                 **common)
-    # dense teacher of the same geometry (all gates off), frozen
-    teacher = ctor(token_skip=False, head_skip=False, layer_skip=False,
-                   generator=torch.Generator(device).manual_seed(args.seed),
-                   **common)
+    gen = lambda: torch.Generator(device).manual_seed(args.seed)
+    if family == "vit":
+        skips = set(args.vit_skip.split(","))
+        common = dict(num_classes=args.num_classes, attn_impl=args.vit_attn,
+                      compute_dtype=compute_dtype, device=device)
+        if args.arch != "laud_t2t_vit_19":  # the T2T stem's geometry is fixed
+            common["img_size"] = args.input_size
+        model = ctor(token_skip="token" in skips, head_skip="head" in skips,
+                     layer_skip="layer" in skips,
+                     linear_impl=args.vit_linear, generator=gen(), **common)
+        # dense teacher of the same geometry (all gates off), frozen
+        teacher = ctor(token_skip=False, head_skip=False, layer_skip=False,
+                       generator=gen(), **common)
+    else:
+        model = ctor(
+            num_classes=args.num_classes, input_size=args.input_size,
+            dyn_mode=_stage_list(args.dyn_mode),
+            mask_spatial_granularity=_stage_list(
+                args.mask_spatial_granularity, int),
+            channel_dyn_granularity=_stage_list(
+                args.channel_dyn_granularity, int),
+            spatial_mask_channel_group=_stage_list(
+                args.spatial_mask_channel_group, int),
+            channel_masker=_stage_list(args.channel_masker),
+            channel_masker_layers=_stage_list(args.channel_masker_layers,
+                                              int),
+            reduction_ratio=_stage_list(args.masker_reduction, int),
+            conv_impl=args.conv_impl, compute_dtype=compute_dtype,
+            device=device, generator=gen())
+        # the dense ResNet of the same depth, frozen
+        teacher = models.ResNet(
+            layers=model.layers, num_classes=args.num_classes,
+            compute_dtype=compute_dtype, device=device, generator=gen())
     teacher.requires_grad_(False)
 
     steps_per_epoch = args.steps_per_epoch or 10
     log("no --data_url: training on synthetic data (smoke mode)")
-    full_flops = vit_dense_flops(model, input_size=args.input_size)
+    if family == "vit":
+        full_flops = vit_dense_flops(model, input_size=args.input_size)
+    else:
+        full_flops = resnet_full_flops(model.layers,
+                                       input_size=args.input_size,
+                                       num_classes=args.num_classes)
     log(f"full_flops (dense multiply-adds): {full_flops / 1e9:.3f} G")
 
     cfg = TrainConfig(

@@ -13,11 +13,12 @@ caller decides when to read them.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional
+from typing import Any, Callable, Optional
 
 import torch
 from torch import nn
 
+from laudnet_tpu_torch.device import full_f32_convolutions
 from laudnet_tpu_torch.ops.gating import GumbelNoise
 from laudnet_tpu_torch.train import losses, schedules
 from laudnet_tpu_torch.train.optim import set_learning_rate
@@ -45,6 +46,7 @@ class TrainConfig:
     target_rate: float = 0.5
     full_flops: float = 4.1e9
     sparsity_criterion: str = "bounds"
+    dyn_mode: Any = ("both",) * 4
 
 
 @dataclasses.dataclass
@@ -71,19 +73,38 @@ CNN_CRITERIA = ("basic", "channel_factor", "cs", "cs_v2", "channel_bounds",
 def compute_sparsity_loss(cfg: TrainConfig, epoch, out):
     """The sparsity loss of ``cfg.sparsity_criterion``. 'bounds' consumes
     only ``flops_perc`` and ``flops``, so it applies to `LAUDViTOutput`
-    (the per-block ratios over the transformer depth). The other six
-    criteria read the CNN family's channel and spatial densities; they are
-    functions in `losses` already and are dispatched here once a model of
-    the port produces those fields."""
+    (the per-block ratios over the transformer depth) as to `LAUDOutput`.
+    The other six criteria read the CNN family's per-stage channel and
+    spatial densities."""
+    common = dict(target=cfg.target_rate, num_epochs=cfg.num_epochs,
+                  full_flops=cfg.full_flops)
     name = cfg.sparsity_criterion
     if name == "bounds":
-        return losses.sparsity_bounds(
-            epoch, out.flops_perc, out.flops, target=cfg.target_rate,
-            num_epochs=cfg.num_epochs, full_flops=cfg.full_flops)
-    if name in CNN_CRITERIA:
-        raise NotImplementedError(
-            f"sparsity criterion {name!r} reads the CNN models' densities: "
-            "it belongs to the CNN slice of the port")
+        return losses.sparsity_bounds(epoch, out.flops_perc, out.flops,
+                                      **common)
+    if name == "basic":
+        return losses.sparsity_basic(epoch, torch.cat(out.channel_s),
+                                     out.flops_perc, out.flops, **common)
+    if name == "channel_factor":
+        return losses.sparsity_channel_factor(
+            epoch, out.channel_s, out.flops_perc, out.flops,
+            dyn_mode=cfg.dyn_mode, **common)
+    if name == "cs":
+        return losses.sparsity_cs(
+            epoch, out.channel_s, out.spatial_s3, out.flops_perc, out.flops,
+            dyn_mode=cfg.dyn_mode, **common)
+    if name == "cs_v2":
+        return losses.sparsity_cs_v2(
+            epoch, out.channel_s, out.spatial_s3, out.flops_perc, out.flops,
+            dyn_mode=cfg.dyn_mode, **common)
+    if name == "channel_bounds":
+        return losses.sparsity_channel_bounds(
+            epoch, torch.cat(out.channel_s), out.flops_perc, out.flops,
+            **common)
+    if name == "channel_bounds_v2":
+        return losses.sparsity_channel_bounds_v2(
+            epoch, torch.cat(out.channel_s), out.flops_perc, out.flops,
+            **common)
     raise ValueError(f"unknown sparsity criterion {name}")
 
 
@@ -99,13 +120,23 @@ def make_train_step(model: nn.Module, teacher: nn.Module,
     """Builds ``train_step(state, images, labels) -> metrics``. The teacher
     is frozen and runs at eval. Gumbel noise comes from a `GumbelNoise` on
     the model's device, re-seeded every step from (seed, step); a given
-    ``noise`` source is used as it is instead."""
+    ``noise`` source is used as it is instead. An f32 model (no
+    ``compute_dtype``) takes the whole step, backward included, with
+    cuDNN's TF32 off (`device.full_f32_convolutions`)."""
     own_noise: Optional[GumbelNoise] = None
     if noise is None:
         device = next(model.parameters()).device
         own_noise = noise = GumbelNoise.seeded(seed, device)
 
+    f32_model = getattr(model, "compute_dtype", None) is None
+
     def train_step(state: TrainState, images, labels):
+        if f32_model:
+            with full_f32_convolutions():
+                return _train_step(state, images, labels)
+        return _train_step(state, images, labels)
+
+    def _train_step(state: TrainState, images, labels):
         step = state.step
         lr = schedules.lr_at(
             step, base_lr=cfg.base_lr, total_epochs=cfg.num_epochs,
@@ -168,9 +199,13 @@ def make_eval_step(model: nn.Module, cfg: TrainConfig) -> Callable:
                    if weights is None else weights.sum().float())
         stats = {"top1": top1, "top5": top5, "n_valid": n_valid,
                  "act_rate": out.flops_perc.mean(), "flops": out.flops}
-        for k in ("token_density", "head_density", "attn_density",
+        # the density breakdown: per stage s3/s2/s1/channel for the CNNs,
+        # per block token/head/attn/mlp for the ViTs
+        for k in ("spatial_s3", "spatial_s2", "spatial_s1", "channel_s",
+                  "token_density", "head_density", "attn_density",
                   "mlp_density"):
-            stats[k] = getattr(out, k)
+            if getattr(out, k, None) is not None:
+                stats[k] = getattr(out, k)
         return stats
 
     return eval_step

@@ -157,13 +157,22 @@ def test_snap_capacity_to_tiles():
 @pytest.mark.parametrize("kw", [dict(fn="fake_quant_per_image"),
                                 dict(fn="QuantConv")])
 def test_later_slices_raise(setup, kw):
-    """What of `ops/quant.py` belongs to the CNN slice still raises: the
-    per-image fake-quant and `QuantConv`. The row and weight fake-quant
-    (QAT) no longer raise, nor does the engine for head_gating or int8."""
+    """What of `ops/quant.py` once belonged to a later slice and raised,
+    the per-image fake-quant and `QuantConv`, now runs (held to JAX in
+    `tests/test_torch_quant.py`): an int8-representable image comes back
+    unchanged, and a 1x1 `QuantConv` with an identity kernel returns it.
+    Nor do the row and weight fake-quant (QAT) raise, nor the engine for
+    head_gating or int8."""
     from laudnet_tpu_torch.ops import quant
 
-    with pytest.raises(NotImplementedError, match="CNN slice"):
-        getattr(quant, kw["fn"])(torch.zeros(2, 4))
+    x = torch.tensor([[127.0, -64.0], [3.0, 0.0]]).reshape(1, 2, 2, 1)
+    if kw["fn"] == "fake_quant_per_image":
+        assert torch.equal(quant.fake_quant_per_image(x), x)
+    else:
+        conv = quant.QuantConv(1, 1, 1, device="cpu")
+        with torch.no_grad():
+            conv.weight.fill_(1.0)
+            assert torch.allclose(conv(x), x, rtol=1e-6)
     assert quant.fake_quant_rows(torch.ones(2, 4)).shape == (2, 4)
     tfv.build_fused_vit(setup[2], head_gating=True, int8=True)
 

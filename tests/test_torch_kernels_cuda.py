@@ -1,6 +1,7 @@
 """The CUDA kernels (`laudnet_tpu_torch/csrc/vit_block.cu`: the block B1,
 the segment B2, the W8A8 block B6 and the attention forward B4;
-`csrc/vit_attention_bwd.cu`: the attention backward B5) against their
+`csrc/vit_attention_bwd.cu`: the attention backward B5;
+`csrc/masked_block.cu`: the block-sparse bottleneck tail B3) against their
 plain PyTorch versions, in bf16 on the card. Marked ``cuda``; skips
 without a card.
 
@@ -20,13 +21,16 @@ from its plain version by the bf16 rounding of p, averaged over the keys.
 The attention backward rounds where its plain version rounds (P, dS and the
 gated dO), so the same four ulps of the largest gradient hold for dqkv; its
 dhead is an f32 sum of B*L*64 products and is held to 2e-3 of the largest
-entry.
+entry. The bottleneck tail rounds where its plain version rounds (the ReLU
+output, the second affine and the residual add), so the four ulps hold for
+it too, and the cells it does not select are ``relu(identity)`` bit for
+bit.
 """
 
 import pytest
 import torch
 
-from laudnet_tpu_torch.ops import vit_attention, vit_block
+from laudnet_tpu_torch.ops import masked_block, vit_attention, vit_block
 
 pytestmark = pytest.mark.cuda
 ULPS = 4
@@ -247,3 +251,83 @@ def test_attention_backward_kernel_matches_plain(card, b, heads, l, gated):
         # a closed head: zero dq, dk, dv, and a dgate that is not zero
         closed = grads[0][0].reshape(l, 3, heads, 64)[:, :, 0]
         assert not closed.any() and grads[1][0, 0] != 0
+
+
+def _tail_inputs(seed, b, hw, c, co, patch, density, dev):
+    g = torch.Generator().manual_seed(seed)
+    rn = lambda *shape, scale=1.0: torch.randn(*shape, generator=g) * scale
+    hm = hw // patch
+    bf = lambda t: t.to(dev, torch.bfloat16)
+    mask = (torch.rand(b, hm, hm, generator=g) < density).float().to(dev)
+    return dict(
+        x1=bf(rn(b, hw, hw, c).relu()), identity=bf(rn(b, hw, hw, co)),
+        mask_cells=mask, w2=bf(rn(3, 3, c, c, scale=(9 * c) ** -0.5)),
+        a2=(1.0 + rn(c, scale=0.1)).to(dev), b2=rn(c, scale=0.1).to(dev),
+        w3=bf(rn(c, co, scale=c ** -0.5)),
+        a3=(1.0 + rn(co, scale=0.1)).to(dev), b3=rn(co, scale=0.1).to(dev))
+
+
+def _check_tail(t, patch, capacity):
+    before = masked_block.masked_bottleneck_tail.launches
+    got = masked_block.masked_bottleneck_tail(**t, patch=patch,
+                                              capacity=capacity)
+    torch.cuda.synchronize()
+    assert masked_block.masked_bottleneck_tail.launches == before + 1
+    want = masked_block.reference_masked_bottleneck_tail(
+        **t, patch=patch, capacity=capacity)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= _tol(want), (err, _tol(want))
+    # cells that were not selected: relu(identity), bit for bit
+    b, hm = t["mask_cells"].shape[:2]
+    active = t["mask_cells"].reshape(b, -1) > 0.5
+    chosen = (active & (active.cumsum(1) <= capacity)).reshape(b, hm, hm)
+    pix = chosen.repeat_interleave(patch, 1).repeat_interleave(patch, 2)
+    rest = torch.relu(t["identity"])[~pix]
+    assert torch.equal(got[~pix], rest)
+    return got
+
+
+# B, H = W, C, Co, patch: the bench shape (narrowed batch), the flagship's
+# four stride-1 block shapes (batch 8), and widths off the tile multiples
+TAIL_SHAPES = [(4, 28, 1024, 2048, 7), (8, 56, 64, 256, 4),
+               (8, 28, 128, 512, 4), (8, 14, 256, 1024, 2),
+               (8, 7, 512, 2048, 1), (3, 8, 72, 88, 2)]
+
+
+@pytest.mark.parametrize("density", [0.5, 0.25])
+@pytest.mark.parametrize("b,hw,c,co,patch", TAIL_SHAPES)
+def test_bottleneck_tail_matches_plain(card, b, hw, c, co, patch, density):
+    t = _tail_inputs(hw + c, b, hw, c, co, patch, density, card)
+    n_cells = (hw // patch) ** 2
+    _check_tail(t, patch, max(1, -(-int(density * n_cells * 100) // 100)))
+    _check_tail(t, patch, n_cells)
+
+
+@pytest.mark.parametrize("kind", ["all_active", "all_zero", "binding"])
+def test_bottleneck_tail_mask_extremes(card, kind):
+    b, hw, c, co, patch = 4, 28, 128, 512, 4
+    t = _tail_inputs(7, b, hw, c, co, patch, 0.6, card)
+    capacity = 49
+    if kind == "all_active":
+        t["mask_cells"] = torch.ones_like(t["mask_cells"])
+    elif kind == "all_zero":
+        t["mask_cells"] = torch.zeros_like(t["mask_cells"])
+    else:
+        capacity = 5  # far fewer slots than active cells
+    got = _check_tail(t, patch, capacity)
+    if kind == "all_zero":
+        assert torch.equal(got, torch.relu(t["identity"]))
+
+
+def test_bottleneck_tail_refuses_what_it_does_not_take(card):
+    t = _tail_inputs(1, 2, 8, 64, 64, 2, 0.5, card)
+    f32 = {k: (v.float() if v.dtype == torch.bfloat16 else v)
+           for k, v in t.items()}
+    with pytest.raises(TypeError):
+        masked_block.masked_bottleneck_tail(**f32, patch=2, capacity=4)
+    with pytest.raises(ValueError):
+        masked_block.masked_bottleneck_tail(**t, patch=2, capacity=0)
+    narrow = _tail_inputs(1, 2, 8, 32, 64, 2, 0.5, card)
+    with pytest.raises(ValueError):
+        masked_block.masked_bottleneck_tail(**narrow, patch=2, capacity=4)

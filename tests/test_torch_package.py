@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from laudnet_tpu_torch import device as port_device
+from laudnet_tpu_torch import entry
 from laudnet_tpu_torch.ops import _build, quant, vit_attention, vit_block
 
 REPO = Path(__file__).resolve().parent.parent
@@ -39,12 +40,15 @@ def test_every_module_imports_without_jax():
              for p in (REPO / "laudnet_tpu_torch").rglob("*.py")}
     names = {n[:-len(".__init__")] if n.endswith(".__init__") else n
              for n in names}
-    assert int(proc.stdout.strip()) == len(names) >= 27
+    assert int(proc.stdout.strip()) == len(names) >= 36
     for new in ("device", "ops.quant", "ops.vit_attention", "models.t2t",
                 "ops.gating", "utils.metrics", "utils.logging_utils",
                 "utils.config", "train.schedules", "train.losses",
                 "train.hyperparams", "train.optim", "train.trainer",
-                "train.checkpoint", "train.main"):
+                "train.checkpoint", "train.main", "entry", "ops.masking",
+                "ops.sparse", "ops.norm", "ops.masked_block",
+                "models.maskers", "models.resnet", "models.laud_resnet",
+                "utils.flops"):
         assert f"laudnet_tpu_torch.{new}" in names
 
 
@@ -107,12 +111,13 @@ def test_kernel_input_checks_raise_before_any_pointer_is_passed():
 
 def test_ctypes_signatures_match_the_cuda_source():
     sources = sorted(_build.CSRC.glob("*.cu"))
-    assert [s.name for s in sources] == ["vit_attention_bwd.cu",
+    assert [s.name for s in sources] == ["masked_block.cu",
+                                         "vit_attention_bwd.cu",
                                          "vit_block.cu"]
     src = "".join(s.read_text() for s in sources)
     decls = dict(re.findall(r"\nint (lt_\w+)\(([^)]*)\)", src))
     assert set(decls) == set(_build._SIGNATURES)
-    assert "lt_attention_bwd" in decls
+    assert "lt_attention_bwd" in decls and "lt_masked_tail" in decls
     # the shared header is hashed with the sources, so editing it rebuilds
     assert _build.CSRC / "mma_common.cuh" in _build._sources()
     for name, argtypes in _build._SIGNATURES.items():
@@ -147,6 +152,11 @@ def test_constructors_without_a_device_ask_for_cuda():
                   lambda: models.T2TStem(embed_dim=64),
                   lambda: models.TokenPerformer(27, 64),
                   lambda: quant.QuantDense(8, 8),
+                  lambda: quant.QuantConv(8, 8, 3),
+                  lambda: models.SpatialMasker(8),
+                  lambda: models.LAUDBottleneck(16, 4, output_size=8),
+                  lambda: models.ResNet(layers=(1, 1, 1, 1)),
+                  models.uni_resnet50, entry.flagship,
                   models.laud_deit_tiny, models.laud_t2t_vit_19):
         with pytest.raises((AssertionError, RuntimeError),
                            match="(?i)cuda|nvidia"):
@@ -237,3 +247,52 @@ def test_int8_kernel_input_checks():
     with pytest.raises(ValueError, match="K % 64"):
         bad = dict(p, fc1=qlin(96, d), fc2=qlin(d, 96))
         vit_block._check_cuda(x, (mask,), [bad], h, int8=True)
+
+
+def test_bottleneck_tail_input_checks():
+    """What the CUDA tail kernel refuses, checked before any pointer is
+    passed; the checks run on CPU tensors too."""
+    from laudnet_tpu_torch.ops import masked_block
+
+    bf = torch.bfloat16
+
+    def args(c=64, co=64, hw=8, dtype=bf):
+        return dict(x1=torch.zeros(2, hw, hw, c, dtype=dtype),
+                    identity=torch.zeros(2, hw, hw, co, dtype=dtype),
+                    mask_cells=torch.ones(2, hw // 2, hw // 2),
+                    w2=torch.zeros(3, 3, c, c, dtype=dtype),
+                    a2=torch.ones(c), b2=torch.zeros(c),
+                    w3=torch.zeros(c, co, dtype=dtype), a3=torch.ones(co),
+                    b3=torch.zeros(co))
+
+    check = masked_block._check_cuda
+    check(**args(), patch=2, capacity=16)
+    with pytest.raises(TypeError, match="bf16"):
+        check(**args(dtype=torch.float32), patch=2, capacity=16)
+    with pytest.raises(ValueError, match="patch"):
+        check(**args(hw=9), patch=3, capacity=9)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        check(**args(c=32), patch=2, capacity=16)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        check(**args(co=68), patch=2, capacity=16)
+    with pytest.raises(ValueError, match="capacity"):
+        check(**args(), patch=2, capacity=17)
+    with pytest.raises(ValueError, match="does not tile"):
+        check(**dict(args(), mask_cells=torch.ones(2, 3, 4)), patch=2,
+              capacity=4)
+    with pytest.raises(ValueError, match="contiguous"):
+        bad = args()
+        bad["x1"] = torch.zeros(2, 8, 64, 8, dtype=bf).transpose(2, 3)
+        check(**bad, patch=2, capacity=16)
+    assert masked_block.masked_bottleneck_tail.launches == 0
+
+
+def test_f32_convolutions_switch_tf32_off_and_back():
+    before = torch.backends.cudnn.allow_tf32
+    with port_device.full_f32_convolutions():
+        assert torch.backends.cudnn.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 == before
+    with pytest.raises(RuntimeError, match="boom"):
+        with port_device.full_f32_convolutions():
+            raise RuntimeError("boom")
+    assert torch.backends.cudnn.allow_tf32 == before

@@ -204,27 +204,148 @@ def test_int8_block_is_close_to_the_float_block(block):
     assert 0 < rel < 0.02, rel
 
 
-@pytest.mark.parametrize("name", ["fake_quant_weight", "fake_quant_rows",
-                                  "fake_quant_per_image", "QuantConv"])
-def test_training_and_cnn_parts_raise(name):
-    """The CNN slice's parts raise; the QAT fake-quant of rows and weights
-    (once raising too) now quantise and dequantise: an int8-representable
-    input comes back unchanged."""
-    if name in ("fake_quant_per_image", "QuantConv"):
-        with pytest.raises(NotImplementedError, match="CNN slice of the port"):
-            getattr(tq, name)(torch.zeros(2, 2))
-        return
-    x = torch.tensor([[127.0, -64.0, 3.0], [2.0, 0.0, -127.0]])
-    assert torch.equal(getattr(tq, name)(x), x)
-
-
-# --- QAT: fake-quant values and straight-through gradients vs JAX ----------
-
 def _jax_value_and_grad(fn, x, cot):
     import jax
     out, vjp = jax.vjp(fn, jnp.asarray(x))
     return np.asarray(out), np.asarray(vjp(jnp.asarray(cot))[0])
 
+
+@pytest.mark.parametrize("name", ["fake_quant_weight", "fake_quant_rows",
+                                  "fake_quant_per_image", "QuantConv"])
+def test_training_and_cnn_parts_raise(name):
+    """Parts that once raised. The CNN family's two now run and are held to
+    JAX; the QAT fake-quant of rows and weights quantise and dequantise: an
+    int8-representable input comes back unchanged."""
+    if name == "fake_quant_per_image":
+        x = np.random.default_rng(3).standard_normal(
+            (3, 5, 5, 4)).astype(np.float32)
+        cot = np.random.default_rng(4).standard_normal(x.shape).astype(
+            np.float32)
+        ref, ref_grad = _jax_value_and_grad(jq.fake_quant_per_image, x, cot)
+        t = torch.from_numpy(x).requires_grad_()
+        out = tq.fake_quant_per_image(t)
+        out.backward(torch.from_numpy(cot))
+        np.testing.assert_allclose(out.detach().numpy(), ref, rtol=1e-6,
+                                   atol=1e-7)
+        np.testing.assert_array_equal(t.grad.numpy(), ref_grad)
+        return
+    if name == "QuantConv":
+        _check_quant_conv(CONV_CASES["3x3"], fake=False)
+        return
+    x = torch.tensor([[127.0, -64.0, 3.0], [2.0, 0.0, -127.0]])
+    assert torch.equal(getattr(tq, name)(x), x)
+
+
+# --- W8A8 convolutions vs JAX ------------------------------------------------
+# features, kernel, strides, padding, dilation, groups, input channels, size
+CONV_CASES = {
+    "1x1": (16, 1, 1, 0, 1, 1, 8, 6),
+    "3x3": (8, 3, 1, 1, 1, 1, 8, 6),
+    "3x3_stride2": (8, 3, 2, 1, 1, 1, 8, 7),
+    "stem_7x7": (8, 7, 2, 3, 1, 1, 3, 16),
+    "downsample": (16, 1, 2, 0, 1, 1, 8, 7),
+    "groups_dilated": (8, 3, 1, 2, 2, 2, 8, 8),
+    "valid": (8, 3, 1, 0, 1, 1, 8, 6),
+}
+
+
+def _check_quant_conv(case, fake, seed=0):
+    """`QuantConv` against the flax one on the same kernel and images. The
+    integer sums are exact on both sides and the dequantisation is the same
+    two f32 multiplies: rtol 1e-6. The fake-quant form is a float
+    convolution summed in another order: atol 1e-5. Seeds were checked to
+    have no code on a rounding tie, where the frameworks may differ."""
+    import jax
+
+    features, k, stride, pad, dil, groups, cin, size = case
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal((2, size, size, cin)) * 2.0).astype(np.float32)
+    jpad = "VALID" if pad == 0 and k > 1 else pad
+    if k == 1:
+        jpad = "SAME"
+    jconv = jq.QuantConv(features, (k, k), strides=stride, padding=jpad,
+                         kernel_dilation=dil, feature_group_count=groups,
+                         fake=fake)
+    v = jconv.init(jax.random.PRNGKey(seed), jnp.asarray(x))
+    kernel = np.asarray(v["params"]["kernel"])
+    ref = np.asarray(jconv.apply(v, jnp.asarray(x)))
+    conv = tq.QuantConv(cin, features, k, stride, pad, dil, groups,
+                        device="cpu", fake=fake)
+    with torch.no_grad():
+        conv.weight.copy_(torch.from_numpy(
+            np.ascontiguousarray(kernel.transpose(3, 2, 0, 1))))
+        out = conv(torch.from_numpy(x))
+    assert out.shape == ref.shape
+    if fake:
+        np.testing.assert_allclose(out.numpy(), ref, atol=1e-5)
+    else:
+        np.testing.assert_allclose(out.numpy(), ref, rtol=1e-6, atol=1e-7)
+    return conv, x
+
+
+@pytest.mark.parametrize("case,fake", [(c, False) for c in sorted(CONV_CASES)]
+                         + [(c, True) for c in ("1x1", "3x3_stride2",
+                                                "groups_dilated")])
+def test_quant_conv_matches_jax(case, fake):
+    _check_quant_conv(CONV_CASES[case], fake, seed=len(case))
+
+
+def test_fake_quant_conv_gradients_match_jax():
+    """The QAT convolution's straight-through gradients, to the input and
+    to the kernel, against flax's on the same cotangent: float convolutions
+    summed in another order, 1e-4 of each gradient's largest entry."""
+    import jax
+
+    rng = np.random.default_rng(5)
+    x = (rng.standard_normal((2, 6, 6, 8)) * 2.0).astype(np.float32)
+    jconv = jq.QuantConv(8, (3, 3), strides=2, padding=1, fake=True)
+    v = jconv.init(jax.random.PRNGKey(0), jnp.asarray(x))
+    kernel = np.asarray(v["params"]["kernel"])
+    cot = rng.standard_normal((2, 3, 3, 8)).astype(np.float32)
+    _, vjp = jax.vjp(lambda k, x: jconv.apply({"params": {"kernel": k}}, x),
+                     jnp.asarray(kernel), jnp.asarray(x))
+    jgk, jgx = (np.asarray(g) for g in vjp(jnp.asarray(cot)))
+    conv = tq.QuantConv(8, 8, 3, 2, 1, device="cpu", fake=True)
+    with torch.no_grad():
+        conv.weight.copy_(torch.from_numpy(
+            np.ascontiguousarray(kernel.transpose(3, 2, 0, 1))))
+    t = torch.from_numpy(x).requires_grad_()
+    conv(t).backward(torch.from_numpy(cot))
+    np.testing.assert_allclose(t.grad.numpy(), jgx, rtol=0,
+                               atol=1e-4 * np.abs(jgx).max())
+    gk = conv.weight.grad.numpy().transpose(2, 3, 1, 0)
+    np.testing.assert_allclose(gk, jgk, rtol=0,
+                               atol=1e-4 * np.abs(jgk).max())
+
+
+def test_quant_conv_is_exact_where_f32_is_not():
+    """127^2 * 9 * 512 exceeds 2^24: the sums must not pass through f32."""
+    xq = torch.full((1, 512, 3, 3), 127.0)
+    wq = torch.full((8, 512, 3, 3), 127, dtype=torch.int8)
+    wq[:, 0, 0, 0] = 126
+    acc = tq.int_conv2d(xq, wq, (1, 1), (0, 0), (1, 1), 1)
+    exact = 127 * 127 * 9 * 512 - 127
+    assert acc.shape == (1, 8, 1, 1)
+    assert float(acc[0, 0, 0, 0]) == float(np.float32(exact))
+
+
+def test_quant_conv_keeps_conv2d_s_parameter_and_per_image_scale():
+    conv, x = _check_quant_conv(CONV_CASES["3x3"], fake=False)
+    assert [n for n, _ in conv.named_parameters()] == ["weight"]
+    assert conv.weight.shape == (8, 8, 3, 3)
+    # one image's outlier must not change another image's output
+    x2 = x.copy()
+    x2[1] *= 50.0
+    with torch.no_grad():
+        a, b = conv(torch.from_numpy(x)), conv(torch.from_numpy(x2))
+    assert torch.equal(a[0], b[0]) and not torch.equal(a[1], b[1])
+    # the QAT form passes gradients straight through to input and weight
+    t = torch.from_numpy(x).requires_grad_()
+    conv(t, fake=True).sum().backward()
+    assert t.grad.abs().sum() > 0 and conv.weight.grad.abs().sum() > 0
+
+
+# --- QAT: fake-quant values and straight-through gradients vs JAX ----------
 
 def test_fake_quant_rows_matches_jax():
     """Values to 1e-6 (one f32 multiply of exact codes by the scale) and the

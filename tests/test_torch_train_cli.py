@@ -3,11 +3,14 @@ the arguments of the JAX CLI's smoke test (`tests/test_train_cli.py`:
 ``laud_deit_tiny``, 2 steps, batch 8, 32x32, 10 classes) plus ``--device
 cpu``. It writes what the JAX CLI writes, resumes from its own checkpoint,
 trains the QAT variant, evaluates a checkpoint it wrote, and refuses the
-flags of later slices."""
+flags of later slices. The CNN archs run the same way at 32x32
+(``uni_resnet50``: 16 blocks, so a 4 x 16 density matrix, rows
+s3/s2/s1/channel as the JAX CLI stacks them)."""
 
 import csv
 import inspect
 import os
+import shutil
 
 import numpy as np
 import pytest
@@ -88,9 +91,109 @@ def test_train_main_variants(tmp_path, extra):
     ["--autoaugment"]],
     ids=lambda f: f[-2].lstrip("-") if len(f) > 1 else f[0].lstrip("-"))
 def test_flags_of_later_slices_raise(tmp_path, flags):
+    if flags in (["--arch", "uni_resnet50"], ["--conv_impl", "int8_qat"]):
+        # once flags of a later slice: the CNN archs and their QAT now train
+        _cnn_run(tmp_path, ["--arch", "uni_resnet50"] + flags)
+        return
     with pytest.raises(NotImplementedError, match="slice of the port"):
         tmain.main(BASE + ["--train_url", str(tmp_path)] + flags)
     assert not (tmp_path / "train.log").exists()    # refused before writing
+
+
+CNN_BASE = ["--device", "cpu", "--steps_per_epoch", "2", "--batch_size", "4",
+            "--input_size", "32", "--num_classes", "10", "--print_freq", "1"]
+
+
+def _drop_checkpoints(tmp_path):
+    """A ResNet-50 checkpoint with its momentum is 200 MB and pytest keeps
+    a test's directory: leave the logs, not the weights."""
+    shutil.rmtree(tmp_path / "ckpt")
+
+
+def _cnn_run(tmp_path, flags, blocks=16, epochs="1", keep=False):
+    best = tmain.main(CNN_BASE + ["--epochs", epochs, "--train_url",
+                                  str(tmp_path)] + flags)
+    assert np.isfinite(best)
+    assert (tmp_path / "ckpt" / "step_2.pt").exists()
+    if not keep:
+        _drop_checkpoints(tmp_path)
+    dens = np.loadtxt(tmp_path / "all_density_latest.txt")
+    assert dens.shape == (4, blocks)    # s3/s2/s1/channel rows x blocks
+    assert ((0 <= dens) & (dens <= 1)).all()
+    assert (dens[3] == 1.0).all()       # spatial mode: no channel gates
+    with open(tmp_path / "log.txt") as f:
+        rows = list(csv.reader(f))
+    assert rows[0] == tmain.CSV_HEADER and len(rows) == 1 + int(epochs)
+    assert all(np.isfinite(float(v)) for v in rows[-1])
+    return dens
+
+
+def test_train_main_cnn_smoke_resume_and_evaluate(tmp_path):
+    _cnn_run(tmp_path, ["--arch", "uni_resnet50", "--amp"], keep=True)
+    ckpt = CheckpointManager(str(tmp_path / "ckpt"))
+    assert ckpt.latest_step() == 2
+    saved = torch.load(tmp_path / "ckpt" / "step_2.pt", weights_only=True)
+    # the BatchNorm statistics travel with the parameters, and a step moved
+    # them off their initial 0 and 1
+    mean = saved["model"]["layer1_0.bn1.running_mean"]
+    assert mean.dtype == torch.float32 and mean.abs().max() > 0
+    tmain.main(CNN_BASE + ["--arch", "uni_resnet50", "--amp", "--epochs", "2",
+                           "--train_url", str(tmp_path)])
+    log = open(tmp_path / "train.log").read()
+    assert "auto-resumed from step 2" in log and "epoch 1 [0/2]" in log
+    assert ckpt.latest_step() == 4
+    top1 = tmain.main(CNN_BASE + [
+        "--arch", "uni_resnet50", "--train_url", str(tmp_path / "eval"),
+        "--evaluate_from", str(tmp_path / "ckpt" / "step_4.pt")])
+    assert 0.0 <= top1 <= 100.0
+    ckpt.close()
+    _drop_checkpoints(tmp_path)
+
+
+def test_train_main_cnn_channel_modes(tmp_path):
+    flags = ["--arch", "uni_resnet50", "--dyn_mode", "both-both-channel-layer",
+             "--channel_masker", "MLP-conv_linear-MLP-MLP",
+             "--channel_masker_layers", "2-2-1-1",
+             "--channel_dyn_granularity", "1-2-1-1", "--optimizer", "RMSprop"]
+    best = tmain.main(CNN_BASE + ["--epochs", "1", "--train_url",
+                                  str(tmp_path)] + flags)
+    _drop_checkpoints(tmp_path)
+    assert np.isfinite(best)
+    dens = np.loadtxt(tmp_path / "all_density_latest.txt")
+    assert dens.shape == (4, 16) and (dens[3, :13] < 1.0).any()
+
+
+def test_resnet101_builds_with_its_own_teacher_and_flops():
+    """`uni_resnet101` is set up (not trained: 33 blocks are slow on the
+    CPU): the student, a dense ResNet-101 teacher, and the closed-form
+    ``full_flops`` of the JAX CLI."""
+    from laudnet_tpu.utils.flops import resnet_full_flops as j_full_flops
+
+    args = tmain.parse_args(CNN_BASE + ["--arch", "uni_resnet101"])
+    tr = tmain.build_training(args, log=lambda *_: None)
+    assert tr.model.layers == tr.teacher.layers == (3, 4, 23, 3)
+    assert sum(len(st) for st in tr.model.stages()) == 33
+    assert tr.cfg.full_flops == j_full_flops((3, 4, 23, 3), input_size=32,
+                                             num_classes=10)
+    assert not any(p.requires_grad for p in tr.teacher.parameters())
+
+
+def test_density_rows_and_family_checks_are_the_jax_cli_s():
+    rng = np.random.default_rng(0)
+    stats = {k: tuple(rng.random(n).astype(np.float32) for n in (3, 4, 6, 3))
+             for k in ("spatial_s3", "spatial_s2", "spatial_s1", "channel_s")}
+    ours = tmain._density_rows({k: tuple(map(torch.from_numpy, v))
+                                for k, v in stats.items()})
+    np.testing.assert_array_equal(ours, jmain._density_rows(stats))
+    assert tmain._stage_list("4-4-2-1", int) == jmain._stage_list(
+        "4-4-2-1", int) == (4, 4, 2, 1)
+    # the JAX CLI's refusals of a flag on the wrong family
+    with pytest.raises(SystemExit, match="--conv_impl applies to"):
+        tmain.main(BASE + ["--conv_impl", "int8_qat"])
+    with pytest.raises(SystemExit, match="--vit_linear applies to"):
+        tmain.main(CNN_BASE + ["--arch", "uni_resnet50", "--vit_linear",
+                               "int8_qat"])
+    assert tmain.arch_family("uni_resnet101") == "resnet"
 
 
 def test_flags_and_defaults_are_the_jax_cli_s():

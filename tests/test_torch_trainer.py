@@ -274,7 +274,178 @@ def test_eval_step_and_teacher_logits():
     with pytest.raises(ValueError, match="unknown sparsity"):
         tt.compute_sparsity_loss(
             tt.TrainConfig(sparsity_criterion="nope"), 0.0, None)
-    for name in tt.CNN_CRITERIA:       # functions in `losses`, no model yet
-        with pytest.raises(NotImplementedError, match="CNN slice"):
+    # the CNN criteria read densities a ViT output does not have
+    out = model(x)
+    for name in tt.CNN_CRITERIA:
+        with pytest.raises(AttributeError, match="channel_s"):
             tt.compute_sparsity_loss(
-                tt.TrainConfig(sparsity_criterion=name), 0.0, None)
+                tt.TrainConfig(sparsity_criterion=name), 0.0, out)
+
+
+# --- the CNN family ---------------------------------------------------------
+
+CNN_KW = dict(layers=(1, 1, 1, 1), num_classes=10, input_size=64,
+              width_mult=0.25,
+              dyn_mode=("spatial", "channel", "both", "layer"),
+              mask_spatial_granularity=(4, 2, 1, 1),
+              channel_dyn_granularity=(1, 2, 2, 1),
+              channel_masker=("MLP", "MLP", "conv_linear", "MLP"),
+              channel_masker_layers=(1, 2, 2, 1),
+              reduction_ratio=(16, 16, 8, 16))
+
+
+@pytest.mark.parametrize("criterion", ("bounds",) + tt.CNN_CRITERIA)
+def test_cnn_sparsity_criteria_dispatch_as_jax(criterion):
+    """Every criterion on the same densities through both dispatchers: a
+    handful of f32 means and squares, rtol 1e-6."""
+    from laudnet_tpu.models.laud_resnet import LAUDOutput as JOut
+    from laudnet_tpu_torch.models.laud_resnet import LAUDOutput as TOut
+
+    rng = np.random.default_rng(3)
+    stages = lambda: tuple(rng.random(n).astype(np.float32)
+                           for n in (3, 4, 6, 3))
+    fields = dict(spatial_s3=stages(), spatial_s2=stages(),
+                  spatial_s1=stages(), channel_s=stages(),
+                  flops_perc=rng.random(16).astype(np.float32),
+                  flops=np.float32(2.3e9))
+    j = JOut(logits=None, **jax.tree_util.tree_map(jnp.asarray, fields))
+    t = TOut(logits=None, **jax.tree_util.tree_map(torch.from_numpy, dict(
+        fields, flops=np.asarray(fields["flops"]))))
+    kw = dict(num_epochs=10, target_rate=0.4, full_flops=4.1e9,
+              sparsity_criterion=criterion,
+              dyn_mode=("both", "spatial", "both", "channel"))
+    for epoch in (0.0, 3.5, 9.0):
+        ref = jt.compute_sparsity_loss(jt.TrainConfig(**kw), epoch, j)
+        got = tt.compute_sparsity_loss(tt.TrainConfig(**kw), epoch, t)
+        np.testing.assert_allclose(float(got), float(ref), rtol=1e-6)
+
+
+@pytest.mark.parametrize("steps,conv_impl", [(2, "dense")])
+def test_cnn_train_steps_match_jax(monkeypatch, steps, conv_impl):
+    """LAUD-ResNet student, dense ResNet teacher: the metrics of every step
+    (rtol 1e-4), then the parameters AND the BatchNorm running statistics
+    leaf by leaf after EACH step (flax keeps the biased batch variance at
+    momentum 0.9, and so must the port). After the first step rtol 1e-4
+    with atol 1e-5: both sides start from the same bits and differ in f32
+    summation order only (measured: 2e-6 at most, in a running variance).
+    The second step starts from those differences, and BatchNorm's
+    backward multiplies them by 1 / sqrt(var + 1e-5), which is up to 316
+    for the channels a ReLU has all but switched off: its updates agree to
+    about 1e-3 of their size (measured 4e-5 at most, on the stem kernel),
+    so atol 2e-4 there, still a hundredth of an update. The
+    straight-through residue multiplies features here and never becomes a
+    score offset, so this holds with every gate at the shipped formula.
+    ``int8_qat`` is not run through this test: XLA compiles the
+    fake-quantiser's divide otherwise than eager JAX computes it and a few
+    codes flip; the QAT convolution is held to eager flax, values and
+    gradients, in `tests/test_torch_quant.py`, and the QAT train step runs
+    through the CLI in `tests/test_torch_train_cli.py`.
+
+    The JAX step is jitted (eager it takes minutes), so the Gumbel noise
+    cannot be recorded from ``jax.random.gumbel``: that is replaced by
+    numpy draws, which the trace bakes in, and the port replays the same
+    draws in every step, as the compiled JAX step does."""
+    from laudnet_tpu.models import laud_resnet as jlr
+    from laudnet_tpu.models import resnet as jr
+    from laudnet_tpu_torch.convert.from_jax import to_flax_batch_stats
+    from laudnet_tpu_torch.models import laud_resnet as tlr
+    from laudnet_tpu_torch.models import resnet as tr
+    from laudnet_tpu_torch.utils.flops import resnet_full_flops
+
+    rng = np.random.default_rng(4)
+    images = rng.standard_normal((4, 64, 64, 3)).astype(np.float32)
+    labels = rng.integers(0, 10, (4,)).astype(np.int32)
+    jmodel = jlr.LAUDResNet(**CNN_KW, conv_impl=conv_impl)
+    jteacher = jr.ResNet(layers=(1, 1, 1, 1), num_classes=10,
+                         width_mult=0.25)
+
+    # the port's own initialiser draws the weights (no XLA compilation of
+    # ``init``); they reach JAX through the inverse mapping
+    gen = torch.Generator().manual_seed(0)
+    donor = tlr.LAUDResNet(**CNN_KW, conv_impl=conv_impl, device="cpu",
+                           generator=gen)
+    tdonor = tr.ResNet(layers=(1, 1, 1, 1), num_classes=10, width_mult=0.25,
+                       device="cpu", generator=gen)
+    v, tv = ({"params": to_flax_tree(m),
+              "batch_stats": to_flax_batch_stats(m)} for m in (donor, tdonor))
+    for blk in v["params"].values():            # let the gates close
+        for head in ("masker_spatial", "masker_channel"):
+            for leaf in blk.get(head, {}).values():
+                if isinstance(leaf, dict) and "bias" in leaf:
+                    leaf["bias"] = np.zeros_like(leaf["bias"])
+    full_flops = resnet_full_flops((1, 1, 1, 1), 64, 0.25, 10)
+
+    recorded = []
+    noise_rng = np.random.default_rng(11)
+
+    def numpy_gumbel(key, shape=(), dtype=float, **kw):
+        recorded.append(noise_rng.gumbel(size=shape).astype(np.float32))
+        return jnp.asarray(recorded[-1])
+
+    monkeypatch.setattr(jax.random, "gumbel", numpy_gumbel)
+    cfg = dict(CFG, sparsity_criterion="cs", dyn_mode=CNN_KW["dyn_mode"])
+    jopt = jo.make_sgd(v["params"], weight_decay=1e-3)
+    state = jt.create_train_state(jmodel, jopt, None, rng=None, variables=v)
+    jstep = jax.jit(jt.make_train_step(
+        jmodel, jteacher, tv, jopt,
+        jt.TrainConfig(full_flops=full_flops, **cfg)))
+    jmetrics, jstates = [], []
+    for _ in range(steps):
+        state, m = jstep(state, jnp.asarray(images), jnp.asarray(labels),
+                         jax.random.PRNGKey(7))
+        jmetrics.append({k: float(v_) for k, v_ in m.items()})
+        jstates.append(state)
+    monkeypatch.undo()
+    assert len(recorded) == 5           # 1 + 1 + 2 + 1 maskers, traced once
+    recorded = recorded * steps
+
+    model = tlr.LAUDResNet(**CNN_KW, conv_impl=conv_impl, device="cpu")
+    teacher = tr.ResNet(layers=(1, 1, 1, 1), num_classes=10, width_mult=0.25,
+                        device="cpu")
+    load_flax_variables(model, v)
+    load_flax_variables(teacher, tv)
+    teacher.requires_grad_(False)
+    opt = to.make_sgd(model, weight_decay=1e-3)
+    noise = ReplayNoise(recorded)
+    step = tt.make_train_step(model, teacher, opt,
+                              tt.TrainConfig(full_flops=full_flops, **cfg),
+                              noise=noise)
+    tstate = tt.TrainState(step=0, model=model, optimizer=opt)
+    x, y = torch.from_numpy(images), torch.from_numpy(labels).long()
+    for i in range(steps):
+        m = step(tstate, x, y)
+        for k in METRICS:
+            np.testing.assert_allclose(float(m[k]), jmetrics[i][k],
+                                       rtol=1e-4, atol=1e-6,
+                                       err_msg=f"step {i} {k}")
+        for ours, theirs in (
+                (to_flax_tree(model), jstates[i].params),
+                (to_flax_batch_stats(model), jstates[i].batch_stats)):
+            got = dict(jax.tree_util.tree_leaves_with_path(ours))
+            ref = jax.tree_util.tree_leaves_with_path(theirs)
+            assert len(ref) == len(got) > 0
+            for path, leaf in ref:
+                np.testing.assert_allclose(
+                    got[path], np.asarray(leaf), rtol=1e-4,
+                    atol=1e-5 if i == 0 else 2e-4,
+                    err_msg=f"step {i} {path}")
+    assert noise.used == len(recorded)
+    assert jmetrics[0]["act_rate"] < 1.0
+    # the statistics moved, and the teacher's did not
+    assert float(model.bn1.running_mean.abs().max()) > 0
+    assert float(teacher.bn1.running_mean.abs().max()) == 0
+
+
+def test_cnn_eval_step_reports_the_stage_densities():
+    from laudnet_tpu_torch.models import laud_resnet as tlr
+
+    model = tlr.LAUDResNet(**CNN_KW, device="cpu",
+                           generator=torch.Generator().manual_seed(0))
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (2, 64, 64, 3)).astype(np.float32))
+    stats = tt.make_eval_step(model, tt.TrainConfig(full_flops=1.0))(
+        x, torch.tensor([0, 1]))
+    for k in ("spatial_s3", "spatial_s2", "spatial_s1", "channel_s"):
+        assert [tuple(v.shape) for v in stats[k]] == [(1,)] * 4
+    assert "token_density" not in stats
+    assert float(stats["flops"]) > 0
