@@ -34,18 +34,43 @@ each raising on failure:
    and B5 launch counts; then the same trainer on a repeated batch (the
    loss must fall), its first step held against the same step through the
    plain attention (metrics and the gradients that B5 feeds), and step
-   time, img/s, peak memory and B4's and B5's share of a step.
+   time, img/s, peak memory and B4's and B5's share of a step;
+7. CNN serving: the flagship LAUD-ResNet-50 (`entry()`, then bs128 bf16
+   dense-masked, sparse, W8A8, the f32 masks against the CPU's, B3 on one
+   stride-1 block per stage);
+8. CNN training: ``train.main.main(--arch uni_resnet50 --amp)``;
+9. the probes, short: P1 (`tools/probe_block_budget.py`, the ``full`` and
+   ``fast_tanh`` bodies) and P2 with every s8 rate
+   (`tools/probe_int8.py --quick`); phase 3 also holds P1 (each carried
+   body variant of B1 within ULPS of its plain version) and P2 (bit for
+   bit the integer product, at n = 4096 and a ragged shape) against their
+   plain versions;
+10. the serving engine (`infer/engine.py::ServingEngine`): calibrate, plan
+    and serve LAUD-DeiT-S with live token gates, the flagship, a
+    channel-mode LAUD-ResNet-50 (static export behind its fidelity gate,
+    int8 allowed) and batch-1 layer skip (`infer/layerskip.py`, a
+    layer-mode LAUD-ResNet-50 and a layer-gated DeiT-S through B4); served
+    logits against the directly built path, each timed CNN form against
+    the dense-masked graph (and each configured copy against the model
+    built with its options), and the latency model's
+    predicted ms beside the measured ms of every ranked mode the port
+    serves (an order the prediction reverses by more than ORDER_GAP
+    fails).
 
 Prints a JSON line of the kernels, then as its last line
-``{"ok": true, "device": {...}}``. Imports nothing of JAX.
+``{"ok": true, "device": {...}}``. Imports nothing of JAX. Nothing runs at
+a cut depth.
 
 ``python3 chip_smoke.py kernels`` stops after phase 3 (a short run to check
 a changed kernel), ``python3 chip_smoke.py train`` runs phases 1-3 and 6,
 ``python3 chip_smoke.py cnn`` runs phases 1-2, B3's part of 3, 7 and 8,
-and ``python3 chip_smoke.py profile`` prints, instead of
+``python3 chip_smoke.py probes`` runs phases 1-2 and both probes in full
+(every mode set, the stage breakdown, the launch costs of
+`tools/probe_host.py`), ``python3 chip_smoke.py engine`` runs phases 1-2
+and 10, and ``python3 chip_smoke.py profile`` prints, instead of
 the phases, where a forward's device time goes (`torch.profiler`, by
-kernel) for the dense DeiT-S, W8A8 DeiT-S and T2T-ViT-19 engines. Neither
-prints a result line.
+kernel) for the dense DeiT-S, W8A8 DeiT-S and T2T-ViT-19 engines. None of
+these prints a result line.
 """
 
 from __future__ import annotations
@@ -63,12 +88,15 @@ import torch
 import torch.nn.functional as F
 
 from laudnet_tpu_torch.entry import entry, flagship
+from laudnet_tpu_torch.infer.engine import ServingEngine, configured
 from laudnet_tpu_torch.infer.fused_vit import _patchify, build_fused_vit
 from laudnet_tpu_torch.models import (laud_deit_small, laud_t2t_vit_19,
-                                      resnet50)
+                                      resnet50, uni_resnet50)
 from laudnet_tpu_torch.models.laud_resnet import conv_nhwc
-from laudnet_tpu_torch.ops import (_build, masked_block, sparse,
+from laudnet_tpu_torch.ops import (_build, masked_block, s8_gemm, sparse,
                                    vit_attention, vit_block)
+from laudnet_tpu_torch.tools import probe_block_budget, probe_host, probe_int8
+from laudnet_tpu_torch.tools.timing import chain_times
 
 B, L_FULL, IMG = 128, 197, 224
 DEIT = dict(d=384, heads=6, hidden=1536)
@@ -156,6 +184,7 @@ SPARSE_F32_REL = 1e-3
 MASK_AGREE_MIN = 0.995
 CNN_TRAIN_STEPS = 4
 SRC = "laudnet_tpu_torch/csrc/vit_block.cu"
+SRC_S8 = "laudnet_tpu_torch/csrc/probe_int8.cu"
 SRC_TAIL = "laudnet_tpu_torch/csrc/masked_block.cu"
 SRC_BWD = "laudnet_tpu_torch/csrc/vit_attention_bwd.cu"
 # B5 against its plain version: both round P, dS and the gated dO to bf16 at
@@ -210,19 +239,7 @@ def phase_build():
 
 def time_ms(fn, reps=20, warmup=3):
     """Median of ``reps`` CUDA-event timings of fn(), after warm-up."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    return statistics.median(chain_times(fn, 1, reps, warmup))
 
 
 def ulp_tol(ref):
@@ -507,12 +524,73 @@ def phase_tail_kernel(dev, card, results):
                    dict(t, mask_cells=mask), 4, capacity, card, timed=False)
 
 
+def phase_probe_kernels(dev, card, results):
+    """P2 (the s8 GEMM) bit for bit against its plain version at n = 4096
+    and a ragged shape, beside `torch._int_mm`; P1 (B1's body variants) at
+    the JAX probe's shape (B=128, L=197, D=384): each carried mode within
+    ULPS of its plain version. (That the production bodies are the
+    parent commit's B1 bit for bit is shown by
+    `tools/compare_b1_build.py`, which needs the other source.)"""
+    g = torch.Generator().manual_seed(5)
+    for m, k, n, label in ((4096, 4096, 4096, "serving"),
+                           (1000, 1040, 776, "")):
+        a = torch.randint(-127, 128, (m, k), generator=g,
+                          dtype=torch.int8).to(dev)
+        w = torch.randint(-127, 128, (n, k), generator=g,
+                          dtype=torch.int8).to(dev)
+        out = s8_gemm.s8_gemm(a, w.t())
+        ref = s8_gemm.s8_gemm_reference(a, w.t())
+        if not torch.equal(out, ref):
+            raise AssertionError(f"P2 s8_gemm {m}x{k}x{n} differs from the "
+                                 "integer product")
+        ms = time_ms(lambda: s8_gemm.s8_gemm(a, w.t()))
+        plain_ms = time_ms(lambda: s8_gemm.s8_gemm_reference(a, w.t()),
+                           reps=5)
+        lib_ms = (time_ms(lambda: torch._int_mm(a, w.t()))
+                  if m > 16 and k % 8 == 0 and n % 8 == 0 else None)
+        ops_s = 2.0 * m * n * k / PEAK_S8
+        bytes_s = (m * k + n * k + 4 * m * n) / PEAK_HBM
+        bound, by = (max(ops_s, bytes_s) * 1e3,
+                     "operations" if ops_s >= bytes_s else "bytes")
+        print(f"P2 s8_gemm {m}x{k} @ {k}x{n}: bit-equal to the integer "
+              f"product; kernel {ms:.4f} ms ({2.0 * m * n * k / ms / 1e9:.1f} "
+              f"TOP/s), plain {plain_ms:.4f} ms, bound {bound:.4f} ms by "
+              f"{by}" + ("" if lib_ms is None else
+                         f", torch._int_mm {lib_ms:.4f} ms") + f" [{card}]")
+        results["s8_gemm"].append(dict(
+            label=label, err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+            bound_by=by, library_ms=lib_ms))
+
+    params, x = probe_block_budget.probe_params(dev)
+    bb, l, d, heads = x.shape[0], x.shape[1], x.shape[2], probe_block_budget.H
+    hidden = params["fc1"]["weight"].shape[0]
+    ones = torch.ones(bb, l, device=dev)
+    args = (x, ones.reshape(bb, 1, l), ones.reshape(bb, l, 1), params)
+    for mode, v in probe_block_budget.MODES.items():
+        def kernel(v=v):
+            return vit_block.fused_vit_block(*args, num_heads=heads,
+                                             variant=v)
+
+        def plain(v=v):
+            return vit_block.fused_vit_block_reference(
+                x, ones, ones, params, num_heads=heads, variant=v)
+
+        compare(f"P1 fused_vit_block variant {mode} D={d} L={l}"
+                + (" (B1's production body)"
+                   if v in (vit_block.EXACT, vit_block.FAST) else ""),
+                kernel, plain, card, results, "block_variant",
+                "serving" if mode == "full" else "",
+                block_bound(l, d, heads, hidden))
+
+
 def phase_kernels(dev, card):
     g = torch.Generator().manual_seed(0)
     results = {"fused_vit_block": [], "fused_vit_segment": [],
                "fused_vit_block_int8": [], "fused_vit_attention": [],
-               "fused_vit_attention_bwd": []}
+               "fused_vit_attention_bwd": [], "block_variant": [],
+               "s8_gemm": []}
     phase_tail_kernel(dev, card, results)
+    phase_probe_kernels(dev, card, results)
 
     # --- B1, DeiT-S and T2T widths (448 and 1344 are not multiples of the
     # 128-wide GEMM tile: this guards its edge tiles) --------------------
@@ -710,7 +788,9 @@ COUNTERS = {  # kernel -> (the wrapper that holds its count, the count)
     "fused_vit_attention_bwd": (vit_attention.fused_vit_attention,
                                 "bwd_launches"),
     "masked_bottleneck_tail": (masked_block.masked_bottleneck_tail,
-                               "launches")}
+                               "launches"),
+    "block_variant": (vit_block.fused_vit_block, "variant_launches"),
+    "s8_gemm": (s8_gemm.s8_gemm, "launches")}
 # Launches of each kernel on the main paths: every path is driven once with
 # all counts set to 0 just before it and read just after (`counted`), and
 # the readings add up here. Launches made to compare a kernel with its
@@ -1466,6 +1546,373 @@ def phase_cnn_train(dev, card):
           f"the LAUD step is {ms / dms:.4f}x as long [{card}]")
 
 
+# --- the probes (P1, P2) and the serving engine --------------------------------
+
+def phase_probes(card, full=False):
+    """The two probes through their entry points: a short form on the main
+    path (P1's full and fast_tanh bodies, a short chain of every s8 rate),
+    or, with ``full``, every mode set, the stage breakdown and the launch
+    costs (``python3 chip_smoke.py probes``)."""
+    if not full:
+        probe_block_budget.run(["full", "fast_tanh"], chain=2, repeats=1)
+        probe_int8.run(quick=True)
+        return
+    for flag in ("default", "--fast", "--post", "--combos"):
+        print(f"--- probe_block_budget {flag} [{card}]")
+        probe_block_budget.run(probe_block_budget.SETS[flag])
+    print(f"--- probe_block_budget --stages [{card}]")
+    print(json.dumps(probe_block_budget.stages()))
+    print(f"--- probe_int8 [{card}]")
+    probe_int8.main([])
+    print(f"--- probe_host [{card}]")
+    probe_host.run()
+
+
+# A mode's predicted and measured times disagree in order only where both
+# the prediction reverses two modes AND they are more than ORDER_GAP apart
+# measured: rates spread 5-25% between calls (PERF.md), so nearer pairs are
+# printed, not judged.
+ORDER_GAP = 0.25
+
+
+def interleaved_ms(fns, rounds=3, reps=3):
+    """Median ms of each of ``fns`` (name -> callable), timed round by
+    round, every callable once a round (`time_ms`): a slow spell of the
+    shared host then falls on all of them alike instead of on whichever
+    form was being timed when it came."""
+    times = {name: [] for name in fns}
+    for _ in range(rounds):
+        for name, fn in fns.items():
+            times[name].append(time_ms(fn, reps=reps, warmup=1))
+    return {name: statistics.median(t) for name, t in times.items()}
+
+
+def predicted_vs_measured(name, plan, measured, card):
+    """Prints each ranked mode's predicted and measured ms (modes the port
+    cannot serve for this model, such as another paradigm's, or the
+    rank-only B3 form, are printed as predicted only); returns
+    the pairs whose order the prediction reverses beyond ORDER_GAP."""
+    print(f"{name}: plan mode {plan.mode} (served {plan.served}, exact "
+          f"{plan.exact}, predicted speedup {plan.predicted_speedup:.4f})"
+          + (f"; {plan.notes}" if plan.notes else ""))
+    for mode, sec in sorted(plan.ranking.items(), key=lambda kv: kv[1]):
+        got = measured.get(mode)
+        print(f"  {mode:>20}: predicted {sec * 1e3:9.4f} ms, measured "
+              + ("not served for this model" if got is None
+                 else f"{got:9.4f} ms")
+              + f" [{card}]")
+    bad = []
+    for a in measured:
+        for b in measured:
+            if (plan.ranking[a] < plan.ranking[b]
+                    and measured[a] > (1 + ORDER_GAP) * measured[b]):
+                bad.append(f"{name}: predicted {a} < {b}, measured "
+                           f"{measured[a]:.4f} > {measured[b]:.4f} ms")
+    for line in bad:
+        print("  ORDER REVERSED:", line)
+    return bad
+
+
+def token_gated_deit(dev, seed=3):
+    """bf16 LAUD-DeiT-S, token gates only (the block engine's), with the
+    gates of layers 3 and 7 centred: each compares a random direction of
+    the token's features with its opposite, unbiased, so about half of
+    the tokens close there and the keeps drop as the nominal schedule's;
+    every other layer's gate is held open by its bias."""
+    _, model = model_pair(laud_deit_small, dev, seed, head_skip=False,
+                          layer_skip=False, device=dev)
+    g = torch.Generator(dev).manual_seed(seed + 1)
+    with torch.no_grad():
+        for i, blk in enumerate(model.blocks):
+            tp = blk.token_policy
+            if i in (3, 7):
+                v = torch.randn(tp.weight.shape[1], device=dev, generator=g)
+                tp.weight[0], tp.weight[1] = v, -v
+                tp.bias.zero_()
+            else:
+                tp.bias.copy_(torch.tensor([5.0, -5.0]))
+    return model
+
+
+def channel_resnet(dev, seed=4):
+    """bf16 LAUD-ResNet-50 in channel mode (groups of 2 channels, one-layer
+    MLP maskers) whose policy keeps a fixed ~60% of the groups with a
+    margin (masker biases +-2) that the input moves a little: the static
+    export's fidelity gate passes."""
+    model = uni_resnet50(dyn_mode=("channel",) * 4,
+                         channel_dyn_granularity=(2, 2, 2, 2),
+                         channel_masker=("MLP",) * 4,
+                         channel_masker_layers=(1, 1, 1, 1),
+                         compute_dtype=torch.bfloat16, device=dev,
+                         generator=torch.Generator(dev).manual_seed(seed))
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for blocks in model.stages():
+            for block in blocks:
+                fc = block.masker_channel.fc
+                keep = (torch.rand(fc.bias.shape[0] // 2, generator=g)
+                        < 0.6).float().to(dev)
+                fc.bias.copy_(torch.cat([4 * keep - 2, 2 - 4 * keep]))
+    return model.eval()
+
+
+def layer_resnet(dev, seed=5):
+    """f32 LAUD-ResNet-50 in layer mode with every odd block's gate shut
+    (masker bias -5 / +5): eight of sixteen blocks run."""
+    model = uni_resnet50(dyn_mode=("layer",) * 4,
+                         channel_masker=("MLP",) * 4,
+                         channel_masker_layers=(1, 1, 1, 1), device=dev,
+                         generator=torch.Generator(dev).manual_seed(seed))
+    with torch.no_grad():
+        for i, block in enumerate(b for bs in model.stages() for b in bs):
+            if i % 2:
+                block.masker_spatial.conv.bias.copy_(
+                    torch.tensor([-5.0, 5.0]))
+    return model.eval()
+
+
+def layer_deit(dev, seed=6):
+    """bf16 LAUD-DeiT-S with layer gates only; the attention branches of
+    blocks 2, 5 and 8 and the MLP branches of blocks 4 and 9 shut."""
+    _, model = model_pair(laud_deit_small, dev, seed, token_skip=False,
+                          head_skip=False, device=dev)
+    with torch.no_grad():
+        for i, blk in enumerate(model.blocks):
+            # layer_policy bias: attn_on, mlp_on, attn_off, mlp_off
+            if i in (2, 5, 8):
+                blk.layer_policy.bias[0] = -5.0
+            if i in (4, 9):
+                blk.layer_policy.bias[1] = -5.0
+    return model
+
+
+def phase_engine(dev, card):
+    """`ServingEngine` on four configurations: calibrate, plan, serve;
+    ``served == mode``; the served logits against the directly built path;
+    predicted against measured ms for every ranked mode the port serves."""
+    images = torch.randn(B, IMG, IMG, 3, device=dev,
+                         generator=torch.Generator(dev).manual_seed(7))
+    calib = [torch.randn(B, IMG, IMG, 3, device=dev, generator=torch.Generator(
+        dev).manual_seed(8 + i)) for i in range(2)]
+    reversed_pairs = []
+
+    def served(engine, name):
+        out, delta = counted(lambda: engine(images))
+        torch.cuda.synchronize()
+        if out.shape != (B, 1000) or not torch.isfinite(out.float()).all():
+            raise AssertionError(f"{name}: bad served logits")
+        if engine.plan.served != engine.plan.mode:
+            raise AssertionError(f"{name}: served {engine.plan.served} != "
+                                 f"mode {engine.plan.mode}")
+        return out, {k: v for k, v in delta.items() if v}
+
+    # --- 1. LAUD-DeiT-S with live token gates ------------------------------
+    deit = token_gated_deit(dev)
+    engine = ServingEngine(deit, snap_capacities=True)
+    plan = engine.calibrate(calib)
+    out, delta = served(engine, "deit")
+    caps = plan.token_capacity
+    direct = build_fused_vit(deit, token_capacity=caps or (1.0,) * 12,
+                             snap_capacities=True,
+                             int8=plan.mode.endswith("-int8"))
+    if not torch.equal(out, direct(images)):
+        raise AssertionError("deit: served logits differ from "
+                             "build_fused_vit with the plan's capacities")
+    print(f"deit engine: capacities {caps}, tokens per layer "
+          f"{direct.token_counts}, launches {delta}; served logits equal "
+          f"build_fused_vit's")
+    # the calibrated capacities before snapping: the same engine unsnapped
+    nominal = ServingEngine(deit).calibrate(calib).token_capacity
+    full = (1.0,) * 12
+    nominal = nominal or full
+    forms = {"dense": dict(),
+             "mask": dict(token_capacity=full),
+             "token": dict(token_capacity=nominal),
+             "token-snapped": dict(token_capacity=nominal,
+                                   snap_capacities=True),
+             "dense-int8": dict(token_capacity=full, int8=True),
+             "token-int8": dict(token_capacity=nominal, int8=True),
+             "token-snapped-int8": dict(token_capacity=nominal,
+                                        snap_capacities=True, int8=True)}
+    measured = interleaved_ms({
+        mode: (lambda fwd=build_fused_vit(deit, **kw): fwd(images))
+        for mode, kw in forms.items() if mode in plan.ranking})
+    reversed_pairs += predicted_vs_measured("deit", plan, measured, card)
+    del deit, engine, direct
+
+    # --- 2. the flagship: the spatial plan ----------------------------------
+    state = mixed_gate_state(dev, images[:32])
+    bf16 = torch.bfloat16
+    fl = variant(state, dev, compute_dtype=bf16)
+    engine = ServingEngine(fl)
+    plan = engine.calibrate(calib)
+    out, delta = served(engine, "flagship")
+    if plan.mode != "dense-masked":
+        raise AssertionError(f"flagship: plan chose {plan.mode}, the latency "
+                             "model orders dense-masked first")
+    with torch.no_grad():
+        masked = fl(images, 0.1).logits
+    if not torch.equal(out, masked):
+        raise AssertionError("flagship: served logits differ from the "
+                             "dense-masked graph")
+    from laudnet_tpu_torch.infer.calibrate import calibrate_patch_capacity
+
+    with torch.no_grad():
+        caps = plan.token_capacity or calibrate_patch_capacity(
+            lambda x: fl(x, 0.1), calib)
+    print(f"flagship engine: launches {delta}; patch capacities {caps}")
+    forms = {"dense-masked": fl,
+             "dense-masked-int8": configured(fl, conv_impl="int8"),
+             "spatial-capacity": configured(fl, execution="sparse",
+                                            patch_capacity=caps),
+             "dense": resnet50(compute_dtype=bf16, device=dev,
+                               generator=torch.Generator(dev).manual_seed(2)
+                               ).eval()}
+    # each configured copy against the model built with the same options
+    # and weights (bit for bit), and against the dense-masked graph: sparse
+    # execution on a calibration batch, whose cells the capacities cover,
+    # at the bf16 engine bound; W8A8 on these half-closed gates is reported
+    # (phase 7 bounds it on open gates: the gates here sit at the tie and
+    # quantisation noise moves cells across it)
+    with torch.no_grad():
+        for mode, kw in (("dense-masked-int8", dict(conv_impl="int8")),
+                         ("spatial-capacity", dict(execution="sparse",
+                                                   patch_capacity=caps))):
+            got = forms[mode](images, 0.1).logits
+            built = variant(state, dev, compute_dtype=bf16, **kw)
+            if not torch.equal(got, built(images, 0.1).logits):
+                raise AssertionError(f"flagship {mode}: the configured copy "
+                                     "differs from the model built so")
+            del built
+        _, rel_int8 = agreement(forms["dense-masked-int8"](images, 0.1).logits,
+                                masked)
+        _, rel_sparse = agreement(
+            forms["spatial-capacity"](calib[0], 0.1).logits,
+            fl(calib[0], 0.1).logits)
+    print(f"flagship: configured copies equal the models built so; "
+          f"spatial-capacity vs dense-masked on a calibration batch: "
+          f"relative logit error {rel_sparse:.6g} (bound {REL_ERR_MAX}); "
+          f"W8A8 vs dense-masked {rel_int8:.6g} (gates at the tie: "
+          f"reported)")
+    if not rel_sparse <= REL_ERR_MAX:
+        raise AssertionError("flagship spatial-capacity disagrees with "
+                             "dense-masked")
+    with torch.no_grad():
+        measured = interleaved_ms({
+            m: (lambda f=f: f(images)) if m == "dense" else
+            (lambda f=f: f(images, 0.1)) for m, f in forms.items()})
+    reversed_pairs += predicted_vs_measured("flagship", plan, measured, card)
+    dense_ms = measured["dense"]  # the ungated ResNet-50 of every CNN plan
+    del fl, forms, engine
+
+    # --- 3. channel-mode LAUD-ResNet-50: static export and int8 -------------
+    ch = channel_resnet(dev)
+    engine = ServingEngine(ch)
+    plan = engine.calibrate(calib, allow_static_export=True, allow_int8=True)
+    out, delta = served(engine, "channel")
+    fidelity = plan.fidelity["mean_agreement"]
+    print(f"channel engine: fidelity mean agreement {fidelity:.4f}, mean "
+          f"coverage {plan.fidelity['mean_coverage']:.4f} (gate 0.85)")
+    if plan.mode != "static-export" or fidelity < 0.85:
+        raise AssertionError(f"channel: plan chose {plan.mode} at fidelity "
+                             f"{fidelity:.4f}; the maskers' margins make the "
+                             "policy static and the model orders the float "
+                             "export first")
+    from laudnet_tpu_torch.infer import calibrate as cal
+    from laudnet_tpu_torch.infer.export_pruned import (
+        calibrate_export_act_scales, export_pruned_resnet)
+
+    mask_fn = cal.make_channel_mask_fn(ch, 0.1)
+    masks = cal.calibrate_channel_masks(mask_fn, calib)
+    export = export_pruned_resnet(ch, masks)
+    if not torch.equal(out, export(images)):
+        raise AssertionError("channel: served logits differ from "
+                             "export_pruned_resnet's")
+    scales = calibrate_export_act_scales(ch, masks, calib, quantile=1.0,
+                                         margin=0.05)
+    forms = {"dense-masked": lambda: ch(images, 0.1).logits,
+             "dense-masked-int8": lambda q=configured(ch, conv_impl="int8"):
+             q(images, 0.1).logits,
+             "static-export": lambda: export(images),
+             "static-export-int8": lambda e=export_pruned_resnet(
+                 ch, masks, int8=True, act_scales=scales): e(images)}
+    # every form against the dense-masked graph: the float export at this
+    # fidelity computes the same network (bf16 noise: REL_ERR_MAX), the
+    # int8 forms quantise 53 convolutions (INT8_REL_ERR_MAX)
+    with torch.no_grad():
+        ref = forms["dense-masked"]()
+        for mode, bound in (("static-export", REL_ERR_MAX),
+                            ("dense-masked-int8", INT8_REL_ERR_MAX),
+                            ("static-export-int8", INT8_REL_ERR_MAX)):
+            _, rel = agreement(forms[mode](), ref)
+            print(f"channel {mode} vs dense-masked: relative logit error "
+                  f"{rel:.6g} (bound {bound})")
+            if not rel <= bound:
+                raise AssertionError(f"channel {mode} is further from "
+                                     "dense-masked than its bound")
+        measured = interleaved_ms(forms)
+    measured["dense"] = dense_ms
+    reversed_pairs += predicted_vs_measured("channel", plan, measured, card)
+    del ch, forms, engine, export
+
+    # --- 4. batch-1 layer skip ------------------------------------------------
+    from laudnet_tpu_torch.infer.layerskip import (build_layer_skip_resnet,
+                                                   build_layer_skip_vit)
+
+    x1 = images[:1]
+    lr = layer_resnet(dev)
+    engine = ServingEngine(lr, batch_size=1)
+    plan = engine.calibrate([x1, images[1:2]])
+    if plan.served != plan.mode:
+        raise AssertionError("layer ResNet: served != mode")
+    ls = build_layer_skip_resnet(lr)
+    (got, n_run), delta = counted(lambda: ls(x1))
+    with torch.no_grad():
+        ref = lr(x1, 0.1)
+    _, rel = agreement(got, ref.logits)
+    ran = int(sum(s.sum().item() for s in ref.spatial_s3))
+    print(f"layer-skip ResNet-50 (f32, batch 1): {n_run} of 16 blocks run "
+          f"(model: {ran}), relative logit error vs the model's eval "
+          f"{rel:.6g}")
+    if n_run != ran or not 0 < n_run < 16 or not rel <= SPARSE_F32_REL:
+        raise AssertionError("layer-skip ResNet disagrees with the model")
+    dense1 = resnet50(device=dev, generator=torch.Generator(dev).manual_seed(
+        2)).eval()
+    with torch.no_grad():
+        measured = interleaved_ms({
+            "layerskip": lambda: ls(x1),
+            "dense-masked": lambda: lr(x1, 0.1),
+            "dense-masked-int8": lambda q=configured(lr, conv_impl="int8"):
+            q(x1, 0.1),
+            "dense": lambda: dense1(x1)}, reps=5)
+    reversed_pairs += predicted_vs_measured("layer ResNet-50 batch 1", plan,
+                                            measured, card)
+    del lr, engine, dense1
+
+    lv = layer_deit(dev)
+    lsv = build_layer_skip_vit(lv)
+    x1 = x1.to(torch.bfloat16)
+    (got, n_run), delta = counted(lambda: lsv(x1))
+    fused = configured(lv, attn_impl="fused")
+    with torch.no_grad():
+        ref = fused(x1, 0.1).logits
+    print(f"layer-skip DeiT-S (bf16, batch 1): {n_run} of 24 branches run, "
+          f"launches {delta}, logits equal the model's eval "
+          f"(attn_impl='fused'): {torch.equal(got, ref)}")
+    if not delta["fused_vit_attention"] > 0 or not torch.equal(got, ref):
+        raise AssertionError("layer-skip DeiT-S: no B4 launch, or logits "
+                             "differ from the model's eval")
+    with torch.no_grad():
+        ms = interleaved_ms({"skip": lambda: lsv(x1),
+                             "masked": lambda: fused(x1, 0.1)}, reps=5)
+    ms_skip, ms_masked = ms["skip"], ms["masked"]
+    print(f"layer-skip DeiT-S batch 1: {ms_skip:.4f} ms, the dense-masked "
+          f"graph {ms_masked:.4f} ms [{card}]")
+    if reversed_pairs:
+        raise AssertionError("the latency model reverses measured orders: "
+                             + "; ".join(reversed_pairs))
+
+
 REPLACES = {
     "fused_vit_block": "laudnet_tpu/ops/pallas/vit_block.py:303",
     "fused_vit_segment": "laudnet_tpu/ops/pallas/vit_block.py:472",
@@ -1473,9 +1920,11 @@ REPLACES = {
     "fused_vit_attention": "laudnet_tpu/ops/pallas/vit_attention.py:194",
     "fused_vit_attention_bwd": "laudnet_tpu/ops/pallas/vit_attention.py:335",
     "masked_bottleneck_tail": "laudnet_tpu/ops/pallas/masked_block.py:176",
+    "block_variant": "tools/probe_block_budget.py:190",
+    "s8_gemm": "tools/probe_int8.py:61",
 }
 SOURCES = {"fused_vit_attention_bwd": SRC_BWD,
-           "masked_bottleneck_tail": SRC_TAIL}
+           "masked_bottleneck_tail": SRC_TAIL, "s8_gemm": SRC_S8}
 
 
 def main():
@@ -1492,6 +1941,15 @@ def main():
         phase_cnn_train(dev, card)
         print(f"CNN phases passed in {time.perf_counter() - t0:.1f} s")
         return
+    if sys.argv[1:] == ["probes"]:
+        phase_probes(card, full=True)
+        print(f"probes passed in {time.perf_counter() - t0:.1f} s [{card}]")
+        return
+    if sys.argv[1:] == ["engine"]:
+        phase_engine(dev, card)
+        print(f"engine phase passed in {time.perf_counter() - t0:.1f} s "
+              f"[{card}]")
+        return
     results = phase_kernels(dev, card)
     if sys.argv[1:] == ["kernels"]:
         print(f"kernel phases passed in {time.perf_counter() - t0:.1f} s")
@@ -1500,12 +1958,28 @@ def main():
         phase_train(dev, card)
         print(f"training phase passed in {time.perf_counter() - t0:.1f} s")
         return
+    lap = [t0]
+
+    def timed(name):
+        now = time.perf_counter()
+        print(f"--- {name}: {now - lap[0]:.1f} s")
+        lap[0] = now
+
+    timed("build and kernel checks")
     deit32, deit, images, deit_rates = phase_slice(dev, card)
     phase_slice2(dev, card, deit32, deit, images, deit_rates)
     del deit32, deit, images
+    timed("ViT serving")
     phase_train(dev, card)
+    timed("ViT training")
     phase_cnn_serving(dev, card)
+    timed("CNN serving")
     phase_cnn_train(dev, card)
+    timed("CNN training")
+    counted(lambda: phase_probes(card))
+    timed("probes")
+    phase_engine(dev, card)
+    timed("serving engine")
     launches = MAIN_PATH_LAUNCHES
     kernels = []
     for name, rows in results.items():

@@ -64,6 +64,18 @@
 // s = max(|x|max, 1e-6) * (1/127), q = clip(rint(x / s), -127, 127), with a
 // true divide and round-half-to-even.
 //
+// P1 (tools/probe_block_budget.py::build_block, the TPU block-budget probe)
+// is B1 with one stage of the body ablated or replaced, to attribute the
+// layer's time. The stages are template parameters of the same kernels, not
+// runtime branches: the LayerNorm form (two-pass, one-pass, or x * scale),
+// the fc1 activation (erf GELU, tanh GELU, x * sigmoid(1.702 x), or none),
+// the softmax (exact, normalised after P.V, p = s * 1e-4 unnormalised, or
+// exp(s) without the row max, normalised after P.V), the row mask of the
+// proj and fc2 epilogues (on or off), and the proj residual (f32, or
+// rounded to bf16). The production layer is the instantiation with the
+// row mask on, the residual in f32 and the (two-pass, erf, exact) or
+// (one-pass, tanh, deferred) stages of fast_math off or on.
+//
 // Weights are in torch.nn.Linear layout (out, in), row-major, so the GEMM
 // computes C[m, n] = sum_k A[m, k] * W[n, k]: both operands are contiguous
 // along k. Every C entry point returns cudaGetLastError().
@@ -83,11 +95,23 @@ namespace {
 constexpr int LN_ROWS = 4;   // warps (rows) per block
 constexpr int LN_MAXV = 32;  // values per lane: d <= 1024
 
-template <bool IN_F32>
+// Body variants (template parameters; the production layer instantiates
+// LN_TWOPASS / LN_ONEPASS, ACT_ERF / ACT_TANH, SM_EXACT / SM_DEFERRED with
+// the row mask on and the residual in f32). The others are the ablations of
+// the block-budget probe (tools/probe_block_budget.py, kernel P1).
+enum LnForm { LN_TWOPASS = 0, LN_ONEPASS = 1, LN_SCALE = 2 };
+enum Act { ACT_ERF = 0, ACT_TANH = 1, ACT_SILU = 2, ACT_NONE = 3 };
+enum Softmax { SM_EXACT = 0, SM_DEFERRED = 1, SM_LINEAR = 2, SM_NOMAX = 3 };
+// lt_gemm's ``variant``: bits 0-1 the fc1 activation, bit 2 drops the row
+// mask from the proj and fc2 epilogues, bit 3 rounds the proj residual to
+// bf16 (x2 = bf16(x + bf16((acc + b) * rmask))).
+constexpr int VAR_NO_ROWMASK = 4, VAR_BF16_RES = 8;
+
+template <bool IN_F32, int LNF>
 __global__ void __launch_bounds__(LN_ROWS * 32)
 layernorm_kernel(const void* __restrict__ xin, bf16* __restrict__ out,
                  const bf16* __restrict__ w, const bf16* __restrict__ b,
-                 int rows, int d, float eps, int one_pass,
+                 int rows, int d, float eps,
                  const bf16* __restrict__ tp_w, const bf16* __restrict__ tp_b,
                  float* __restrict__ mask, int seq_len) {
     const int lane = threadIdx.x & 31;
@@ -123,9 +147,18 @@ layernorm_kernel(const void* __restrict__ xin, bf16* __restrict__ out,
         const bool keep = (l0 >= l1) || (row % seq_len == 0);
         if (lane == 0) mask[row] = mask[row] * (keep ? 1.f : 0.f);
     }
+    if constexpr (LNF == LN_SCALE) {
+        // the probe's "no LayerNorm": x * scale, no statistics, no bias
+#pragma unroll
+        for (int t = 0; t < LN_MAXV; ++t) {
+            const int c = t * 32 + lane;
+            if (c < d) out[base + c] = tobf(v[t] * bf(w[c]));
+        }
+        return;
+    }
     const float mu = warp_sum(sum) / d;
     float var;
-    if (one_pass) {
+    if constexpr (LNF == LN_ONEPASS) {
         float sq = 0.f;
 #pragma unroll
         for (int t = 0; t < LN_MAXV; ++t) sq += v[t] * v[t];
@@ -323,12 +356,24 @@ __device__ __forceinline__ float gelu_tanh(float x) {
     return 0.5f * x * (1.f + tanhf(0.7978845608028654f * (x + 0.044715f * x * x * x)));
 }
 
-template <int EPI, typename Acc>
+__device__ __forceinline__ float silu_gelu(float x) {
+    return x / (1.f + expf(-1.702f * x));
+}
+
+template <int ACT>
+__device__ __forceinline__ float act_fn(float x) {
+    if constexpr (ACT == ACT_ERF) return gelu_erf(x);
+    else if constexpr (ACT == ACT_TANH) return gelu_tanh(x);
+    else if constexpr (ACT == ACT_SILU) return silu_gelu(x);
+    else return x;
+}
+
+template <int EPI, typename Acc, int ACT = ACT_ERF, bool ROWMASK = true, bool BF16RES = false>
 __global__ void __launch_bounds__(GTHREADS, 2)
 gemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W,
             const bf16* __restrict__ bias, int M, int N, int K,
             const void* __restrict__ resid, const float* __restrict__ rmask,
-            int fast_gelu, void* __restrict__ out,
+            void* __restrict__ out,
             const float* __restrict__ xs, const float* __restrict__ ws) {
     constexpr bool S8 = std::is_same<Acc, int>::value;
     extern __shared__ __align__(128) unsigned char gemm_smem[];
@@ -399,7 +444,7 @@ gemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W,
         for (int h = 0; h < 2; ++h) {
             const int gm = m0 + wm * 64 + i * 16 + g + h * 8;
             if (gm >= M) continue;
-            const float rm = (EPI == EPI_PROJ || EPI == EPI_FC2) ? rmask[gm] : 1.f;
+            const float rm = ((EPI == EPI_PROJ || EPI == EPI_FC2) && ROWMASK) ? rmask[gm] : 1.f;
             float rs = 1.f;
             if constexpr (S8) rs = xs[gm];
 #pragma unroll
@@ -423,12 +468,23 @@ gemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W,
                 } else if (EPI == EPI_PROJ) {
                     const float2 x = __bfloat1622float2(
                         *reinterpret_cast<const __nv_bfloat162*>(static_cast<const bf16*>(resid) + o));
-                    *reinterpret_cast<float2*>(static_cast<float*>(out) + o) =
-                        make_float2(x.x + v0 * rm, x.y + v1 * rm);
+                    float2 r;
+                    if constexpr (BF16RES) {
+                        r = make_float2(round_bf(x.x + round_bf(v0 * rm)),
+                                        round_bf(x.y + round_bf(v1 * rm)));
+                    } else if constexpr (ROWMASK) {
+                        r = make_float2(x.x + v0 * rm, x.y + v1 * rm);
+                    } else {
+                        r = make_float2(x.x + v0, x.y + v1);
+                    }
+                    *reinterpret_cast<float2*>(static_cast<float*>(out) + o) = r;
                 } else if (EPI == EPI_FC1) {
                     *reinterpret_cast<unsigned*>(static_cast<bf16*>(out) + o) =
-                        fast_gelu ? pack_bf16(gelu_tanh(v0), gelu_tanh(v1))
-                                  : pack_bf16(gelu_erf(v0), gelu_erf(v1));
+                        pack_bf16(act_fn<ACT>(v0), act_fn<ACT>(v1));
+                } else if (!ROWMASK) {
+                    const float2 x2 = *reinterpret_cast<const float2*>(static_cast<const float*>(resid) + o);
+                    *reinterpret_cast<unsigned*>(static_cast<bf16*>(out) + o) =
+                        pack_bf16(x2.x + v0, x2.y + v1);
                 } else {
                     const float2 x2 = *reinterpret_cast<const float2*>(static_cast<const float*>(resid) + o);
                     *reinterpret_cast<unsigned*>(static_cast<bf16*>(out) + o) =
@@ -460,11 +516,14 @@ __host__ __forceinline__ size_t att_smem_bytes(int l) {
     return ((size_t)2 * att_lp(l) + AQT) * KLD * sizeof(bf16) + (size_t)att_lp(l) * sizeof(float);
 }
 
-template <int KT16>
+template <int KT16, int SM>
 __global__ void __launch_bounds__(AWARPS * 32)
 attention_kernel(const bf16* __restrict__ qkv, const float* __restrict__ key_mask,
                  const float* __restrict__ head_gate, bf16* __restrict__ out, int L, int H,
-                 float sm_scale, int fast) {
+                 float sm_scale) {
+    // SM_DEFERRED and SM_NOMAX divide the P.V output by the row sum;
+    // SM_LINEAR (the probe's "no softmax", p = s * 1e-4) never normalises
+    constexpr bool fast = SM == SM_DEFERRED || SM == SM_NOMAX;
     extern __shared__ __align__(128) unsigned char att_smem[];
     const int lp = att_lp(L);
     bf16* Ks = reinterpret_cast<bf16*>(att_smem);
@@ -536,17 +595,25 @@ attention_kernel(const bf16* __restrict__ qkv, const float* __restrict__ key_mas
         }
     }
     float sum[2] = {0.f, 0.f};
+    if constexpr (SM == SM_EXACT || SM == SM_DEFERRED) {
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        for (int r = 0; r < 2; ++r) {
+            mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+            mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        }
+    } else {
+        mx[0] = mx[1] = 0.f;  // the row max is never subtracted
     }
 #pragma unroll
     for (int n = 0; n < 2 * KT16; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-            s[n][e] = expf(s[n][e] - mx[e >> 1]);  // exp(-inf) = 0 for padded keys
-            sum[e >> 1] += s[n][e];
+            if constexpr (SM == SM_LINEAR) {
+                s[n][e] = s[n][e] == -INFINITY ? 0.f : s[n][e] * 1e-4f;  // padded keys: 0
+            } else {
+                s[n][e] = expf(s[n][e] - mx[e >> 1]);  // exp(-inf) = 0 for padded keys
+                sum[e >> 1] += s[n][e];
+            }
         }
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -566,7 +633,7 @@ attention_kernel(const bf16* __restrict__ qkv, const float* __restrict__ key_mas
     for (int j = 0; j < KT16; ++j) {
         if (j < nkt) {
             unsigned pf[4];
-            if (fast) {
+            if constexpr (SM != SM_EXACT) {
                 pf[0] = pack_bf16(s[2 * j][0], s[2 * j][1]);
                 pf[1] = pack_bf16(s[2 * j][2], s[2 * j][3]);
                 pf[2] = pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]);
@@ -596,7 +663,7 @@ attention_kernel(const bf16* __restrict__ qkv, const float* __restrict__ key_mas
 #pragma unroll
         for (int n = 0; n < DH / 8; ++n) {
             float v0 = o[n][r * 2], v1 = o[n][r * 2 + 1];
-            if (fast) {
+            if constexpr (fast) {
                 v0 = v0 / sum[r];
                 v1 = v1 / sum[r];
             }
@@ -605,45 +672,85 @@ attention_kernel(const bf16* __restrict__ qkv, const float* __restrict__ key_mas
     }
 }
 
-template <int KT16>
-cudaError_t launch_attention(const bf16* qkv, const float* key_mask, const float* head_gate,
-                             bf16* out, int b, int l, int num_heads, float sm_scale, int fast,
-                             cudaStream_t stream) {
+template <int KT16, int SM>
+cudaError_t launch_attention_sm(const bf16* qkv, const float* key_mask, const float* head_gate,
+                                bf16* out, int b, int l, int num_heads, float sm_scale,
+                                cudaStream_t stream) {
     const size_t smem = att_smem_bytes(l);
     const cudaError_t err = cudaFuncSetAttribute(
-        attention_kernel<KT16>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+        attention_kernel<KT16, SM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
     if (err != cudaSuccess) return err;
     const dim3 grid((l + AQT - 1) / AQT, num_heads, b), block(AWARPS * 32);
-    attention_kernel<KT16><<<grid, block, smem, stream>>>(qkv, key_mask, head_gate, out, l,
-                                                          num_heads, sm_scale, fast);
+    attention_kernel<KT16, SM><<<grid, block, smem, stream>>>(qkv, key_mask, head_gate, out, l,
+                                                              num_heads, sm_scale);
     return cudaGetLastError();
 }
 
+template <int KT16>
+cudaError_t launch_attention(const bf16* qkv, const float* key_mask, const float* head_gate,
+                             bf16* out, int b, int l, int num_heads, float sm_scale, int softmax,
+                             cudaStream_t stream) {
+    switch (softmax) {
+        case SM_EXACT: return launch_attention_sm<KT16, SM_EXACT>(qkv, key_mask, head_gate, out, b, l, num_heads, sm_scale, stream);
+        case SM_DEFERRED: return launch_attention_sm<KT16, SM_DEFERRED>(qkv, key_mask, head_gate, out, b, l, num_heads, sm_scale, stream);
+        case SM_LINEAR: return launch_attention_sm<KT16, SM_LINEAR>(qkv, key_mask, head_gate, out, b, l, num_heads, sm_scale, stream);
+        case SM_NOMAX: return launch_attention_sm<KT16, SM_NOMAX>(qkv, key_mask, head_gate, out, b, l, num_heads, sm_scale, stream);
+        default: return cudaErrorInvalidValue;
+    }
+}
+
 // ``k2``: K in 2-byte units (K for bf16 operands, K / 2 for s8).
-template <int EPI, typename Acc>
+template <int EPI, typename Acc, int ACT = ACT_ERF, bool ROWMASK = true, bool BF16RES = false>
 cudaError_t launch_gemm(const void* a, const void* w, const void* bias, int m, int n, int k2,
-                        const void* resid, const void* rmask, int fast_gelu, void* out,
+                        const void* resid, const void* rmask, void* out,
                         const void* xs, const void* ws, cudaStream_t stream) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        gemm_kernel<EPI, Acc>, cudaFuncAttributeMaxDynamicSharedMemorySize, GSMEM);
+    auto kernel = gemm_kernel<EPI, Acc, ACT, ROWMASK, BF16RES>;
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, GSMEM);
     if (err != cudaSuccess) return err;
     const dim3 grid((n + GBN - 1) / GBN, (m + GBM - 1) / GBM), block(GTHREADS);
-    gemm_kernel<EPI, Acc><<<grid, block, GSMEM, stream>>>(
+    kernel<<<grid, block, GSMEM, stream>>>(
         static_cast<const bf16*>(a), static_cast<const bf16*>(w), static_cast<const bf16*>(bias),
-        m, n, k2, resid, static_cast<const float*>(rmask), fast_gelu, out,
+        m, n, k2, resid, static_cast<const float*>(rmask), out,
         static_cast<const float*>(xs), static_cast<const float*>(ws));
     return cudaGetLastError();
 }
 
-template <typename Acc>
-cudaError_t dispatch_gemm(int epilogue, const void* a, const void* w, const void* bias, int m,
-                          int n, int k2, const void* resid, const void* rmask, int fast_gelu,
-                          void* out, const void* xs, const void* ws, cudaStream_t s) {
+// bf16 operands: the epilogue's variant (see VAR_*) picks the instantiation.
+cudaError_t dispatch_gemm_bf16(int epilogue, int variant, const void* a, const void* w,
+                               const void* bias, int m, int n, int k, const void* resid,
+                               const void* rmask, void* out, cudaStream_t s) {
+    const bool rowmask = !(variant & VAR_NO_ROWMASK), bf16res = variant & VAR_BF16_RES;
+#define LT_GEMM(...) launch_gemm<__VA_ARGS__>(a, w, bias, m, n, k, resid, rmask, out, nullptr, nullptr, s)
     switch (epilogue) {
-        case EPI_QKV: return launch_gemm<EPI_QKV, Acc>(a, w, bias, m, n, k2, resid, rmask, fast_gelu, out, xs, ws, s);
-        case EPI_PROJ: return launch_gemm<EPI_PROJ, Acc>(a, w, bias, m, n, k2, resid, rmask, fast_gelu, out, xs, ws, s);
-        case EPI_FC1: return launch_gemm<EPI_FC1, Acc>(a, w, bias, m, n, k2, resid, rmask, fast_gelu, out, xs, ws, s);
-        case EPI_FC2: return launch_gemm<EPI_FC2, Acc>(a, w, bias, m, n, k2, resid, rmask, fast_gelu, out, xs, ws, s);
+        case EPI_QKV: return LT_GEMM(EPI_QKV, float);
+        case EPI_PROJ:
+            if (bf16res) return rowmask ? LT_GEMM(EPI_PROJ, float, ACT_ERF, true, true)
+                                        : cudaErrorInvalidValue;
+            return rowmask ? LT_GEMM(EPI_PROJ, float) : LT_GEMM(EPI_PROJ, float, ACT_ERF, false);
+        case EPI_FC1:
+            switch (variant & 3) {
+                case ACT_ERF: return LT_GEMM(EPI_FC1, float, ACT_ERF);
+                case ACT_TANH: return LT_GEMM(EPI_FC1, float, ACT_TANH);
+                case ACT_SILU: return LT_GEMM(EPI_FC1, float, ACT_SILU);
+                default: return LT_GEMM(EPI_FC1, float, ACT_NONE);
+            }
+        case EPI_FC2:
+            return rowmask ? LT_GEMM(EPI_FC2, float) : LT_GEMM(EPI_FC2, float, ACT_ERF, false);
+        default: return cudaErrorInvalidValue;
+    }
+#undef LT_GEMM
+}
+
+cudaError_t dispatch_gemm_s8(int epilogue, const void* a, const void* w, const void* bias, int m,
+                             int n, int k2, const void* resid, const void* rmask, void* out,
+                             const void* xs, const void* ws, cudaStream_t s) {
+    switch (epilogue) {
+        case EPI_QKV: return launch_gemm<EPI_QKV, int>(a, w, bias, m, n, k2, resid, rmask, out, xs, ws, s);
+        case EPI_PROJ: return launch_gemm<EPI_PROJ, int>(a, w, bias, m, n, k2, resid, rmask, out, xs, ws, s);
+        case EPI_FC1: return launch_gemm<EPI_FC1, int>(a, w, bias, m, n, k2, resid, rmask, out, xs, ws, s);
+        case EPI_FC2: return launch_gemm<EPI_FC2, int>(a, w, bias, m, n, k2, resid, rmask, out, xs, ws, s);
         default: return cudaErrorInvalidValue;
     }
 }
@@ -657,33 +764,36 @@ extern "C" {
 
 const char* lt_error_string(int code) { return cudaGetErrorString(static_cast<cudaError_t>(code)); }
 
+// ``ln_form``: LN_TWOPASS, LN_ONEPASS or LN_SCALE.
 int lt_layernorm(const void* x, int x_f32, void* out, const void* w, const void* b, int rows,
-                 int d, float eps, int one_pass, const void* tp_w, const void* tp_b, void* mask,
+                 int d, float eps, int ln_form, const void* tp_w, const void* tp_b, void* mask,
                  int seq_len, void* stream) {
     const dim3 grid((rows + LN_ROWS - 1) / LN_ROWS), block(LN_ROWS * 32);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (x_f32) {
-        layernorm_kernel<true><<<grid, block, 0, s>>>(
-            x, static_cast<bf16*>(out), static_cast<const bf16*>(w),
-            static_cast<const bf16*>(b), rows, d, eps, one_pass,
-            static_cast<const bf16*>(tp_w), static_cast<const bf16*>(tp_b),
-            static_cast<float*>(mask), seq_len);
-    } else {
-        layernorm_kernel<false><<<grid, block, 0, s>>>(
-            x, static_cast<bf16*>(out), static_cast<const bf16*>(w),
-            static_cast<const bf16*>(b), rows, d, eps, one_pass,
-            static_cast<const bf16*>(tp_w), static_cast<const bf16*>(tp_b),
-            static_cast<float*>(mask), seq_len);
+#define LT_LN(F32, LNF)                                                                  \
+    layernorm_kernel<F32, LNF><<<grid, block, 0, s>>>(                                   \
+        x, static_cast<bf16*>(out), static_cast<const bf16*>(w),                        \
+        static_cast<const bf16*>(b), rows, d, eps, static_cast<const bf16*>(tp_w),      \
+        static_cast<const bf16*>(tp_b), static_cast<float*>(mask), seq_len)
+    switch (ln_form * 2 + (x_f32 ? 1 : 0)) {
+        case 0: LT_LN(false, LN_TWOPASS); break;
+        case 1: LT_LN(true, LN_TWOPASS); break;
+        case 2: LT_LN(false, LN_ONEPASS); break;
+        case 3: LT_LN(true, LN_ONEPASS); break;
+        case 4: LT_LN(false, LN_SCALE); break;
+        case 5: LT_LN(true, LN_SCALE); break;
+        default: return static_cast<int>(cudaErrorInvalidValue);
     }
+#undef LT_LN
     return static_cast<int>(cudaGetLastError());
 }
 
+// ``variant``: the fc1 activation and the epilogue flags (VAR_*).
 int lt_gemm(const void* a, const void* w, const void* bias, int m, int n, int k, int epilogue,
-            const void* resid, const void* rmask, int fast_gelu, void* out, void* stream) {
+            const void* resid, const void* rmask, int variant, void* out, void* stream) {
     if (k % GBK != 0 || n % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
-    return static_cast<int>(dispatch_gemm<float>(epilogue, a, w, bias, m, n, k, resid, rmask,
-                                                 fast_gelu, out, nullptr, nullptr,
-                                                 static_cast<cudaStream_t>(stream)));
+    return static_cast<int>(dispatch_gemm_bf16(epilogue, variant, a, w, bias, m, n, k, resid,
+                                               rmask, out, static_cast<cudaStream_t>(stream)));
 }
 
 // s8 operands: a (m, k) and w (n, k) codes, xs (m,) and ws (n,) f32 scales,
@@ -692,14 +802,14 @@ int lt_gemm_s8(const void* a, const void* xs, const void* w, const void* ws, con
                int m, int n, int k, int epilogue, const void* resid, const void* rmask,
                void* out, void* stream) {
     if (k % (2 * GBK) != 0 || n % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
-    return static_cast<int>(dispatch_gemm<int>(epilogue, a, w, bias, m, n, k / 2, resid, rmask,
-                                               0, out, xs, ws,
-                                               static_cast<cudaStream_t>(stream)));
+    return static_cast<int>(dispatch_gemm_s8(epilogue, a, w, bias, m, n, k / 2, resid, rmask,
+                                             out, xs, ws, static_cast<cudaStream_t>(stream)));
 }
 
-// ``head_gate``: (b, num_heads) f32 0/1 output gate, or null.
+// ``head_gate``: (b, num_heads) f32 0/1 output gate, or null. ``softmax``:
+// SM_EXACT, SM_DEFERRED (fast_math), SM_LINEAR or SM_NOMAX.
 int lt_attention(const void* qkv, const void* key_mask, const void* head_gate, void* out, int b,
-                 int l, int num_heads, float sm_scale, int fast, void* stream) {
+                 int l, int num_heads, float sm_scale, int softmax, void* stream) {
     const bf16* Q = static_cast<const bf16*>(qkv);
     const float* KM = static_cast<const float*>(key_mask);
     const float* HG = static_cast<const float*>(head_gate);
@@ -709,11 +819,11 @@ int lt_attention(const void* qkv, const void* key_mask, const void* head_gate, v
     // covers L (DeiT-S selection lengths 96..197 land on 7, 9 and 13)
     const int kt = att_lp(l) / 16;
     cudaError_t err;
-    if (kt <= 4) err = launch_attention<4>(Q, KM, HG, O, b, l, num_heads, sm_scale, fast, s);
-    else if (kt <= 7) err = launch_attention<7>(Q, KM, HG, O, b, l, num_heads, sm_scale, fast, s);
-    else if (kt <= 9) err = launch_attention<9>(Q, KM, HG, O, b, l, num_heads, sm_scale, fast, s);
-    else if (kt <= 13) err = launch_attention<13>(Q, KM, HG, O, b, l, num_heads, sm_scale, fast, s);
-    else if (l <= ATT_MAX_L) err = launch_attention<16>(Q, KM, HG, O, b, l, num_heads, sm_scale, fast, s);
+    if (kt <= 4) err = launch_attention<4>(Q, KM, HG, O, b, l, num_heads, sm_scale, softmax, s);
+    else if (kt <= 7) err = launch_attention<7>(Q, KM, HG, O, b, l, num_heads, sm_scale, softmax, s);
+    else if (kt <= 9) err = launch_attention<9>(Q, KM, HG, O, b, l, num_heads, sm_scale, softmax, s);
+    else if (kt <= 13) err = launch_attention<13>(Q, KM, HG, O, b, l, num_heads, sm_scale, softmax, s);
+    else if (l <= ATT_MAX_L) err = launch_attention<16>(Q, KM, HG, O, b, l, num_heads, sm_scale, softmax, s);
     else err = cudaErrorInvalidValue;
     return static_cast<int>(err);
 }

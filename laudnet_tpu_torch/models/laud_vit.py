@@ -383,15 +383,10 @@ class LAUDViT(nn.Module):
             if blk.token_policy is not None:
                 _open_bias_(blk.token_policy.bias, 1)
 
-    def forward(self, x, temperature=None, *, training: bool = False,
-                noise=None):
-        """``x``: NHWC images. Training gates are Gumbel samples at
-        ``temperature`` with noise from ``noise`` (`ops/gating.py`), three
-        draws a block in the order layer, head, token; at eval
-        ``temperature`` is unused. ``flops_perc`` and ``flops`` of the
-        result carry the gate gradients."""
-        if training and noise is None:
-            raise ValueError("training=True needs a Gumbel noise source")
+    def embed(self, x):
+        """The token prologue of ``forward``: NHWC images to the (B, n+1, D)
+        stream in the compute dtype (patch or T2T stem, class token,
+        position embedding). Returns ``(x, n, flops)``."""
         b, _, _, c = x.shape
         cd = self.compute_dtype
         if self.stem == "t2t":
@@ -418,6 +413,20 @@ class LAUDViT(nn.Module):
         x = x + self.pos_embed
         if cd is not None:
             x = x.to(cd)  # the residual stream stays in the compute dtype
+        return x, n, flops
+
+    def forward(self, x, temperature=None, *, training: bool = False,
+                noise=None):
+        """``x``: NHWC images. Training gates are Gumbel samples at
+        ``temperature`` with noise from ``noise`` (`ops/gating.py`), three
+        draws a block in the order layer, head, token; at eval
+        ``temperature`` is unused. ``flops_perc`` and ``flops`` of the
+        result carry the gate gradients."""
+        if training and noise is None:
+            raise ValueError("training=True needs a Gumbel noise source")
+        b = x.shape[0]
+        cd = self.compute_dtype
+        x, n, flops = self.embed(x)
 
         token_mask = torch.ones((b, n + 1), dtype=torch.float32,
                                 device=x.device)

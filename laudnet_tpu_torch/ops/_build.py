@@ -29,14 +29,15 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # Every pointer and the stream are c_void_p: ctypes would pass a bare
 # Python int as a 32-bit int and cut the address.
 _SIGNATURES = {
-    # x, x_is_f32, out, w, b, rows, d, eps, one_pass, tp_w, tp_b, mask,
+    # x, x_is_f32, out, w, b, rows, d, eps, ln_form, tp_w, tp_b, mask,
     # seq_len, stream
     "lt_layernorm": (_P, _I, _P, _P, _P, _I, _I, _F, _I, _P, _P, _P, _I, _P),
-    # a, w, bias, m, n, k, epilogue, resid, rmask, fast_gelu, out, stream
+    # a, w, bias, m, n, k, epilogue, resid, rmask, variant, out, stream
     "lt_gemm": (_P, _P, _P, _I, _I, _I, _I, _P, _P, _I, _P, _P),
     # a, xs, w, ws, bias, m, n, k, epilogue, resid, rmask, out, stream
     "lt_gemm_s8": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P),
-    # qkv, key_mask, head_gate, out, b, l, num_heads, sm_scale, fast, stream
+    # qkv, key_mask, head_gate, out, b, l, num_heads, sm_scale, softmax,
+    # stream
     "lt_attention": (_P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
     # x, x_is_f32, q, scale, w, b, rows, d, eps, stream
     "lt_layernorm_quant": (_P, _I, _P, _P, _P, _P, _I, _I, _F, _P),
@@ -48,6 +49,8 @@ _SIGNATURES = {
     # x1, identity, slots, n_valid, selected, w2t, a2, b2, w3t, a3, b3, mid,
     # out, b, h, w, c, co, patch, max_slots, stream
     "lt_masked_tail": (_P,) * 13 + (_I,) * 7 + (_P,),
+    # a, b, c, m, n, k, stream
+    "lt_s8_gemm": (_P, _P, _P, _I, _I, _I, _P),
 }
 
 
@@ -76,16 +79,12 @@ def library_path() -> Path:
     return BUILD_DIR / f"laudnet_kernels_{h.hexdigest()[:16]}.so"
 
 
-@functools.lru_cache(maxsize=None)
-def build() -> tuple[Path, float, str]:
-    """Compiles the sources unless the hashed library exists. Returns the
-    library path, the seconds spent compiling (0 when it existed) and the
-    compiler's output (``-Xptxas -v``: registers, shared memory, spills)."""
-    out = library_path()
-    if out.exists():
-        return out, 0.0, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [s for s in _sources() if s.suffix == ".cu"]
+def compile_library(cu: list[Path], out: Path) -> tuple[float, str]:
+    """Compiles the ``.cu`` sources ``cu`` (one ``nvcc`` each, all started
+    together) and links them into the shared library ``out``. Returns the
+    seconds spent and the compiler's output (``-Xptxas -v``: registers,
+    shared memory, spills)."""
+    out.parent.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     t0 = time.perf_counter()
     log = []
@@ -102,7 +101,7 @@ def build() -> tuple[Path, float, str]:
         if code != 0:
             raise RuntimeError(f"nvcc failed on {what} ({code}):\n{text}")
 
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
         tmp = Path(tmp)
         objects = [tmp / f"{src.stem}.o" for src in cu]
         logs = [tmp / f"{src.stem}.log" for src in cu]
@@ -121,21 +120,39 @@ def build() -> tuple[Path, float, str]:
                       *map(str, objects)], tmp / "link.log"),
                tmp / "link.log", "the link")
         os.replace(tmp_lib, out)  # atomic: a reader never sees half a file
-    return out, time.perf_counter() - t0, "".join(log)
+    return time.perf_counter() - t0, "".join(log)
+
+
+@functools.lru_cache(maxsize=None)
+def build() -> tuple[Path, float, str]:
+    """Compiles the sources unless the hashed library exists. Returns the
+    library path, the seconds spent compiling (0 when it existed) and the
+    compiler's output."""
+    out = library_path()
+    if out.exists():
+        return out, 0.0, ""
+    seconds, log = compile_library(
+        [s for s in _sources() if s.suffix == ".cu"], out)
+    return out, seconds, log
+
+
+def load(path: Path, names=None) -> ctypes.CDLL:
+    """Loads the library at ``path`` and binds the C entry points
+    ``names`` (all of `_SIGNATURES` by default)."""
+    lib = ctypes.CDLL(str(path))
+    for name in names or _SIGNATURES:
+        fn = getattr(lib, name)
+        fn.argtypes = list(_SIGNATURES[name])
+        fn.restype = ctypes.c_int
+    lib.lt_error_string.argtypes = [ctypes.c_int]
+    lib.lt_error_string.restype = ctypes.c_char_p
+    return lib
 
 
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built first if needed."""
-    path, _, _ = build()
-    lib = ctypes.CDLL(str(path))
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = list(argtypes)
-        fn.restype = ctypes.c_int
-    lib.lt_error_string.argtypes = [ctypes.c_int]
-    lib.lt_error_string.restype = ctypes.c_char_p
-    return lib
+    return load(build()[0])
 
 
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:

@@ -137,8 +137,10 @@ def int_conv2d(xq: torch.Tensor, wq: torch.Tensor, stride, padding, dilation,
     is int8. f32 cannot hold the sums (127^2 * 9 * 512 > 2^24), so on the
     CPU the convolution runs in f64, and on a card as im2col rows times the
     weight matrix in ``torch._int_mm`` (s8 x s8 -> s32), group by group.
-    That product wants more than 16 rows and K and N in multiples of 8:
-    rows, K (the 7x7x3 stem's 147) and N are zero-padded up."""
+    That product wants more than 16 rows and K in multiples of 8, and
+    cuBLASLt refuses some N that are multiples of 8 (N = 40 at M = 401,408
+    on an H100) while every multiple of 64 runs: rows, K (the 7x7x3 stem's
+    147) and N (an exported channel slice's 38) are zero-padded up."""
     if not xq.is_cuda:
         out = torch.nn.functional.conv2d(
             xq.double(), wq.double(), None, stride, padding, dilation, groups)
@@ -162,7 +164,7 @@ def int_conv2d(xq: torch.Tensor, wq: torch.Tensor, stride, padding, dilation,
     cols = cols.to(torch.int8)
     m, per = cols.shape[0], cg * kh * kw
     og = o // groups
-    pad_m, pad_k, pad_n = max(17 - m, 0), (-per) % 8, (-og) % 8
+    pad_m, pad_k, pad_n = max(17 - m, 0), (-per) % 8, (-og) % 64
     outs = []
     for g in range(groups):
         a = cols[:, g * per:(g + 1) * per]

@@ -29,6 +29,8 @@ feature lanes, (B, 1, D); that is a layout of theirs, and the port keeps
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from laudnet_tpu_torch.ops.quant import int8_linear, quantize_weight
@@ -39,6 +41,44 @@ MAX_DIM = 1024     # LayerNorm kernel: 32 values per lane
 MAX_HIDDEN_INT8 = 4096  # row-quantise kernel: 128 values per lane
 MAX_LEN = 256      # attention kernel: a warp's score rows in registers
 EPI_QKV, EPI_PROJ, EPI_FC1, EPI_FC2 = 0, 1, 2, 3  # csrc/vit_block.cu
+# the body variants' codes in csrc/vit_block.cu (LnForm, Act, Softmax, VAR_*)
+LN_FORMS = ("twopass", "onepass", "scale")
+ACTS = ("erf", "tanh", "silu", "none")
+SOFTMAXES = ("exact", "deferred", "linear", "nomax")
+VAR_NO_ROWMASK, VAR_BF16_RES = 4, 8
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockVariant:
+    """A layer body: the production one (`EXACT`, `FAST`) or an ablation of
+    the block-budget probe (P1, `tools/probe_block_budget.py`).
+
+    ``ln``: 'twopass', 'onepass' or 'scale' (x * weight: no statistics, no
+    bias); ``act`` (fc1): 'erf', 'tanh', 'silu' (x * sigmoid(1.702 x)) or
+    'none'; ``softmax``: 'exact', 'deferred' (normalised after P.V),
+    'linear' (p = s * 1e-4, never normalised) or 'nomax' (exp(s) without
+    the row max, normalised after P.V); ``row_mask``: the proj and fc2
+    outputs are multiplied by the row mask; ``bf16_residual``: x2 =
+    bf16(x + bf16(proj * row_mask)) instead of f32."""
+    ln: str = "twopass"
+    act: str = "erf"
+    softmax: str = "exact"
+    row_mask: bool = True
+    bf16_residual: bool = False
+
+    def codes(self):
+        """(LayerNorm form, lt_gemm variant, softmax) as the kernels take
+        them."""
+        var = ACTS.index(self.act)
+        if not self.row_mask:
+            var |= VAR_NO_ROWMASK
+        if self.bf16_residual:
+            var |= VAR_BF16_RES
+        return LN_FORMS.index(self.ln), var, SOFTMAXES.index(self.softmax)
+
+
+EXACT = BlockVariant()
+FAST = BlockVariant(ln="onepass", act="tanh", softmax="deferred")
 
 
 # --- plain block math ------------------------------------------------------
@@ -72,20 +112,40 @@ def gelu_tanh(x):
         0.7978845608028654 * (x + 0.044715 * x * x * x)))
 
 
+def layer_norm_scale(x, weight, bias, eps=1e-6):
+    """The probe's "no LayerNorm": x * weight in f32, bias unused
+    (`probe_block_budget.py::_ln_scale_only`)."""
+    return x.float() * weight.float()
+
+
+def silu_gelu(x):
+    """x * sigmoid(1.702 x), a cheap GELU (`probe_block_budget.py::_silu_gelu`)."""
+    return x * torch.sigmoid(1.702 * x)
+
+
+_LN = {"twopass": layer_norm, "onepass": layer_norm_onepass,
+       "scale": layer_norm_scale}
+_ACT = {"erf": gelu_exact, "tanh": gelu_tanh, "silu": silu_gelu,
+        "none": lambda u: u}
+
+
 def _mm(a, weight, bias):
     """a @ weight.T + bias with f32 accumulation: bf16 products are exact in
     f32, so this is the TPU kernel's bf16-operand, f32-accumulate product."""
     return a.float() @ weight.float().t() + bias.float()
 
 
-def attention(qkv, neg, num_heads, sm_scale, fast=False, head_gate=None):
+def attention(qkv, neg, num_heads, sm_scale, fast=False, head_gate=None,
+              softmax=None):
     """Masked MHA over packed (B, L, 3D) qkv in the compute dtype, heads
     merged, rounded to that dtype per head (`vit_block.py::_pair_attention`
     without the TPU lane pairing). ``neg``: (B, L) additive key mask.
     Exact normalises p before P.V; ``fast`` uses p = exp(s - max) rounded
     for P.V and divides by the unrounded f32 row sum afterwards.
-    ``head_gate``: (B, H) 0/1, multiplied into the rounded output in the
-    compute dtype (`vit_block.py:428-430`)."""
+    ``softmax`` names the form instead of ``fast`` (`BlockVariant`):
+    'linear' is p = s * 1e-4 with no normalisation, 'nomax' exp(s)
+    normalised after P.V. ``head_gate``: (B, H) 0/1, multiplied into the
+    rounded output in the compute dtype (`vit_block.py:428-430`)."""
     cdt = qkv.dtype
     b, l, d3 = qkv.shape
     d = d3 // 3
@@ -93,9 +153,15 @@ def attention(qkv, neg, num_heads, sm_scale, fast=False, head_gate=None):
     x = qkv.reshape(b, l, 3, num_heads, dh).permute(2, 0, 3, 1, 4)
     q, k, v = x[0].float(), x[1].float(), x[2].float()
     s = (q @ k.transpose(-1, -2)) * sm_scale + neg[:, None, None, :]
-    if fast:
+    softmax = softmax or ("deferred" if fast else "exact")
+    if softmax == "deferred":
         p = torch.exp(s - s.amax(-1, keepdim=True))
         o = (p.to(cdt).float() @ v) / p.sum(-1, keepdim=True)
+    elif softmax == "nomax":
+        p = torch.exp(s)
+        o = (p.to(cdt).float() @ v) / p.sum(-1, keepdim=True)
+    elif softmax == "linear":
+        o = (s * 1e-4).to(cdt).float() @ v
     else:
         o = torch.softmax(s, dim=-1).to(cdt).float() @ v
     o = o.to(cdt)
@@ -121,34 +187,40 @@ def token_gate(x, weight, bias):
 
 
 def _layer_plain(x, kmask, rmask, p, num_heads, ln_eps, fast_math,
-                 head_gate=None):
+                 head_gate=None, variant=None):
     """One layer on (B, L, D) x; ``kmask`` (B, L), ``rmask`` (B, L, 1) f32.
-    Rounding points: `vit_block.py:421-442`."""
+    Rounding points: `vit_block.py:421-442`. ``variant`` (a `BlockVariant`)
+    replaces the body that ``fast_math`` picks."""
     cdt = x.dtype
-    ln = layer_norm_onepass if fast_math else layer_norm
-    gelu = gelu_tanh if fast_math else gelu_exact
+    v = variant or (FAST if fast_math else EXACT)
+    ln, gelu = _LN[v.ln], _ACT[v.act]
     neg = (1.0 - kmask) * NEG
     h1 = ln(x, p["ln1"]["weight"], p["ln1"]["bias"], ln_eps).to(cdt)
     qkv = _mm(h1, p["qkv"]["weight"], p["qkv"]["bias"]).to(cdt)
     attn = attention(qkv, neg, num_heads, (x.shape[-1] // num_heads) ** -0.5,
-                     fast=fast_math, head_gate=head_gate)
+                     softmax=v.softmax, head_gate=head_gate)
     proj = _mm(attn, p["proj"]["weight"], p["proj"]["bias"])
-    x2 = x.float() + proj * rmask
+    if v.bf16_residual:
+        x2 = (x + (proj * rmask).to(cdt)).float()
+    else:
+        x2 = x.float() + (proj * rmask if v.row_mask else proj)
     # LN2's input is rounded BEFORE the LayerNorm (`vit_block.py:436`)
     h2 = ln(x2.to(cdt), p["ln2"]["weight"], p["ln2"]["bias"], ln_eps).to(cdt)
     u = gelu(_mm(h2, p["fc1"]["weight"], p["fc1"]["bias"])).to(cdt)
     y = _mm(u, p["fc2"]["weight"], p["fc2"]["bias"])
-    return (x2 + y * rmask).to(cdt)
+    return (x2 + (y * rmask if v.row_mask else y)).to(cdt)
 
 
 def fused_vit_block_reference(x, key_mask, row_mask, params, *,
                               num_heads: int, head_gate=None,
-                              ln_eps: float = 1e-6, fast_math: bool = False):
+                              ln_eps: float = 1e-6, fast_math: bool = False,
+                              variant=None):
     """Plain PyTorch version of `fused_vit_block`, on any device."""
     b, l, _ = x.shape
     return _layer_plain(x, key_mask.reshape(b, l).float(),
                         row_mask.reshape(b, l, 1).float(), params,
-                        num_heads, ln_eps, fast_math, head_gate=head_gate)
+                        num_heads, ln_eps, fast_math, head_gate=head_gate,
+                        variant=variant)
 
 
 def quantize_block_params(params: dict) -> dict:
@@ -276,32 +348,33 @@ def _f32(t):
 
 
 def _layer_cuda(lib, x, kmask, rmask, p, num_heads, ln_eps, fast_math,
-                policy=None, head_gate=None):
+                policy=None, head_gate=None, variant=None):
     """Seven launches: LN1 (+ the token gate, updating ``kmask`` in place;
     B2 passes one buffer as both masks), qkv, attention, proj, LN2, fc1,
     fc2. ``kmask`` and ``rmask`` are contiguous (B, L) f32, ``head_gate``
-    contiguous (B, H) f32 or None."""
+    contiguous (B, H) f32 or None; ``variant`` as `_layer_plain`."""
     from laudnet_tpu_torch.ops._build import check
 
     b, l, d = x.shape
     m = b * l
     hidden = p["fc1"]["weight"].shape[0]
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    fast = int(fast_math)
+    ln_form, gemm_var, softmax = (variant or (FAST if fast_math
+                                              else EXACT)).codes()
     bf16 = dict(dtype=torch.bfloat16, device=x.device)
 
     def ln(inp, is_f32, w, tp_w=None, tp_b=None, mask=None):
         out = torch.empty((m, d), **bf16)
         check(lib, lib.lt_layernorm(
             _ptr(inp), is_f32, _ptr(out), _ptr(w["weight"]), _ptr(w["bias"]),
-            m, d, ln_eps, fast, _ptr(tp_w), _ptr(tp_b), _ptr(mask), l,
+            m, d, ln_eps, ln_form, _ptr(tp_w), _ptr(tp_b), _ptr(mask), l,
             stream), "layernorm kernel")
         return out
 
     def gemm(a, w, n, k, epi, resid=None, out=None):
         check(lib, lib.lt_gemm(
             _ptr(a), _ptr(w["weight"]), _ptr(w["bias"]), m, n, k, epi,
-            _ptr(resid), _ptr(rmask), fast, _ptr(out), stream),
+            _ptr(resid), _ptr(rmask), gemm_var, _ptr(out), stream),
             "gemm kernel")
         return out
 
@@ -314,7 +387,7 @@ def _layer_cuda(lib, x, kmask, rmask, p, num_heads, ln_eps, fast_math,
     attn = torch.empty((m, d), **bf16)
     check(lib, lib.lt_attention(_ptr(qkv), _ptr(kmask), _ptr(head_gate),
                                 _ptr(attn), b, l, num_heads, DH ** -0.5,
-                                fast, stream), "attention kernel")
+                                softmax, stream), "attention kernel")
     x2 = gemm(attn, p["proj"], d, d, EPI_PROJ, resid=x,
               out=torch.empty((m, d), dtype=torch.float32, device=x.device))
     h2 = ln(x2, 1, p["ln2"])
@@ -389,30 +462,37 @@ def _route(x):
 
 def fused_vit_block(x, key_mask, row_mask, params, *, num_heads: int,
                     head_gate=None, ln_eps: float = 1e-6,
-                    fast_math: bool = False):
+                    fast_math: bool = False, variant=None):
     """One pre-norm transformer layer (B1). ``x``: (B, L, D); ``key_mask``:
     (B, 1, L) 1/0 over keys; ``row_mask``: (B, L, 1) 1/0 over rows (both
     branch outputs are multiplied by it); ``head_gate``: optional (B, H)
     0/1 gate on each head's attention output. Returns (B, L, D) in x's
     dtype. CPU tensors run `fused_vit_block_reference`; CUDA tensors run
-    the kernels (bf16)."""
+    the kernels (bf16). ``variant`` (a `BlockVariant`) replaces the body
+    ``fast_math`` picks: the block-budget probe's layer (P1,
+    `tools/probe_block_budget.py::build_block`), whose launches count in
+    ``fused_vit_block.variant_launches`` instead of ``.launches``."""
     if not _route(x):
         return fused_vit_block_reference(x, key_mask, row_mask, params,
                                          num_heads=num_heads,
                                          head_gate=head_gate, ln_eps=ln_eps,
-                                         fast_math=fast_math)
+                                         fast_math=fast_math, variant=variant)
     from laudnet_tpu_torch.ops._build import library
 
     _check_cuda(x, (key_mask, row_mask), [params], num_heads, head_gate)
     b, l, _ = x.shape
     out = _layer_cuda(library(), x, _f32(key_mask.reshape(b, l)),
                       _f32(row_mask.reshape(b, l)), params, num_heads, ln_eps,
-                      fast_math, head_gate=_f32(head_gate))
-    fused_vit_block.launches += 1
+                      fast_math, head_gate=_f32(head_gate), variant=variant)
+    if variant is None:
+        fused_vit_block.launches += 1
+    else:
+        fused_vit_block.variant_launches += 1
     return out
 
 
 fused_vit_block.launches = 0
+fused_vit_block.variant_launches = 0
 
 
 def fused_vit_block_int8(x, key_mask, row_mask, qparams, *, num_heads: int,

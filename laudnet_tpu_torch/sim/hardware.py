@@ -1,0 +1,109 @@
+"""The H100 for the latency model (`sim/h100.py`).
+
+`HopperSpec` holds the card's published peaks (NVIDIA's H100 SXM data
+sheet, dense rates at the 700 W limit) and the rates the port's own
+execution forms reach on it, each pinned from a run of a committed probe on
+an H100. The JAX package's `TPUSpec`, `TPU_PRESETS` and the GPU roofline
+presets are not copied: the port prices only what it runs, on this card.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, replace
+
+
+@dataclass(frozen=True)
+class HopperSpec:
+    """An NVIDIA Hopper card and the port's measured rates on it.
+
+    Published: ``n_sms``, ``peak_bf16`` / ``peak_int8`` (tensor cores,
+    dense), ``mem_bandwidth`` (HBM3), ``l2_bytes``, ``smem_per_block``.
+    Measured (rates in FLOP/s or bytes/s of the logical work):
+
+    * ``block_gemm_frac``: B1's bf16 GEMMs (mma.sync) as a fraction of
+      ``peak_bf16``; ``attention_rate``: B1's attention kernel;
+      ``block_ln_frac``: B1's LayerNorm kernel as a fraction of
+      ``mem_bandwidth`` (`tools/probe_block_budget.py --stages`, P1);
+    * ``block_s8_gemm_frac``: B6's s8 GEMMs at the block's K (same probe),
+      ``s8_gemm_frac``: P2's s8 GEMM at n = 4096, both of ``peak_int8``
+      (`tools/probe_int8.py`);
+    * ``matmul_rate``: cuBLAS's bf16 product (``torch.matmul``, 8192^3);
+      ``conv_rate``: cuDNN's bf16 convolutions, channels-last, over
+      ResNet-50's 53 at batch 128; ``qconv_rate``: `QuantConv` over the
+      same (weight and activation quantisation, unfold, ``torch._int_mm``,
+      dequantisation: what ``conv_impl='int8'`` runs); ``int_conv_rate``:
+      the static int8 export's convolution over the same
+      (`tools/probe_int8.py`);
+    * ``eager_bw_frac``: an eager elementwise PyTorch pass, and
+      ``index_bw_frac``: the gather and scatter-add of patches
+      (`ops/sparse.py`), as fractions of ``mem_bandwidth``;
+      ``host_launch``: host seconds to issue one small PyTorch operation
+      (what a kernel wrapper's launch costs); ``eager_host_launch``: host
+      seconds per operation of the eager model graph (the flagship's eval
+      forward at batch 128, over the operations it dispatches);
+      ``device_launch``: the device's time between two
+      back-to-back launches; ``host_sync``: one read of a device scalar to
+      the host (`tools/probe_host.py`).
+    """
+
+    name: str
+    block_gemm_frac: float
+    attention_rate: float
+    block_ln_frac: float
+    block_s8_gemm_frac: float
+    s8_gemm_frac: float
+    matmul_rate: float
+    conv_rate: float
+    qconv_rate: float
+    int_conv_rate: float
+    eager_bw_frac: float
+    index_bw_frac: float
+    host_launch: float
+    eager_host_launch: float
+    device_launch: float
+    host_sync: float
+    n_sms: int = 132
+    peak_bf16: float = 989e12
+    peak_int8: float = 1979e12
+    mem_bandwidth: float = 3.35e12
+    l2_bytes: float = 50e6
+    smem_per_block: int = 227 * 1024
+    batch_size: int = 128
+
+    def with_batch(self, batch_size: int) -> "HopperSpec":
+        return replace(self, batch_size=batch_size)
+
+
+HOPPER_PRESETS = {
+    # Measured on an NVIDIA H100 80GB HBM3 at a 700.00 W power limit
+    # (nvidia-smi --query-gpu=name,power.limit --format=csv,noheader) by
+    # `python3 chip_smoke.py probes`: probe_block_budget --stages (B1's
+    # GEMMs 185.69 TFLOP/s, its attention 85.70, its LayerNorm 1,789.57
+    # GB/s; B6's s8 GEMMs 226.27 TOP/s), probe_int8 (P2 525.00 TOP/s at
+    # n = 4096; torch.matmul 806.51 TFLOP/s; over ResNet-50's convolutions
+    # at bs128: cuDNN bf16 270.52 TFLOP/s, QuantConv 11.84, the export's
+    # 13.73); and by two runs of `python -m
+    # laudnet_tpu_torch.tools.probe_host` in one call, their mean (issue
+    # 10.94 / 10.63 us; the eager graph 38.54 / 30.73 us of host an
+    # operation; device gap 1.995 / 1.996 us; host read 15.42 / 19.69 us;
+    # eager pass 0.8752 / 0.8772 and gather/scatter 0.1167 / 0.1188 of
+    # 3.35 TB/s).
+    "h100": HopperSpec(
+        "h100",
+        block_gemm_frac=185.69 / 989,
+        attention_rate=85.70e12,
+        block_ln_frac=1789.57 / 3350,
+        block_s8_gemm_frac=226.27 / 1979,
+        s8_gemm_frac=525.00 / 1979,
+        matmul_rate=806.51e12,
+        conv_rate=270.52e12,
+        qconv_rate=11.84e12,
+        int_conv_rate=13.73e12,
+        eager_bw_frac=(0.8752 + 0.8772) / 2,
+        index_bw_frac=(0.1167 + 0.1188) / 2,
+        host_launch=(10.94 + 10.63) / 2 * 1e-6,
+        eager_host_launch=(38.54 + 30.73) / 2 * 1e-6,
+        device_launch=(1.995 + 1.996) / 2 * 1e-6,
+        host_sync=(15.42 + 19.69) / 2 * 1e-6,
+    ),
+}

@@ -1,9 +1,10 @@
 """The CUDA kernels (`laudnet_tpu_torch/csrc/vit_block.cu`: the block B1,
 the segment B2, the W8A8 block B6 and the attention forward B4;
 `csrc/vit_attention_bwd.cu`: the attention backward B5;
-`csrc/masked_block.cu`: the block-sparse bottleneck tail B3) against their
-plain PyTorch versions, in bf16 on the card. Marked ``cuda``; skips
-without a card.
+`csrc/masked_block.cu`: the block-sparse bottleneck tail B3; the probes'
+kernels, P1 = B1 with its body variants and P2 = `csrc/probe_int8.cu`'s s8
+GEMM) against their plain PyTorch versions, in bf16 (P2: int8) on the card.
+Marked ``cuda``; skips without a card.
 
 Imports no JAX, so it runs on a machine that has none; there, skip the
 JAX-importing conftest:
@@ -24,13 +25,17 @@ dhead is an f32 sum of B*L*64 products and is held to 2e-3 of the largest
 entry. The bottleneck tail rounds where its plain version rounds (the ReLU
 output, the second affine and the residual add), so the four ulps hold for
 it too, and the cells it does not select are ``relu(identity)`` bit for
-bit.
+bit. P1's variants (B1's wrapper with a ``variant``) round where their plain
+versions round and hold the same four ulps.
+P2's integer sums are exact on both sides: equal bit for bit.
 """
 
 import pytest
 import torch
 
-from laudnet_tpu_torch.ops import masked_block, vit_attention, vit_block
+from laudnet_tpu_torch.ops import (masked_block, s8_gemm, vit_attention,
+                                   vit_block)
+from laudnet_tpu_torch.tools.probe_block_budget import MODES
 
 pytestmark = pytest.mark.cuda
 ULPS = 4
@@ -331,3 +336,47 @@ def test_bottleneck_tail_refuses_what_it_does_not_take(card):
     narrow = _tail_inputs(1, 2, 8, 32, 64, 2, 0.5, card)
     with pytest.raises(ValueError):
         masked_block.masked_bottleneck_tail(**narrow, patch=2, capacity=4)
+
+
+@pytest.mark.parametrize("mode", sorted(MODES))
+def test_block_variant_kernel_matches_plain(card, mode):
+    g = torch.Generator().manual_seed(11)
+    b, l, d, heads, hidden = 4, 131, 192, 3, 384
+    x, mask = _inputs(g, b, l, d, card)
+    p = _layer(g, d, hidden, card)
+    args = (x, mask.reshape(b, 1, l), mask.reshape(b, l, 1), p)
+    v = MODES[mode]
+    before = vit_block.fused_vit_block.variant_launches
+    out = vit_block.fused_vit_block(*args, num_heads=heads, variant=v)
+    assert vit_block.fused_vit_block.variant_launches == before + 1
+    ref = vit_block.fused_vit_block(*(t.cpu() if torch.is_tensor(t) else t
+                                      for t in args[:3]),
+                                    {k: {n: t.cpu() for n, t in w.items()}
+                                     for k, w in p.items()},
+                                    num_heads=heads, variant=v)
+    assert (out.float().cpu() - ref.float()).abs().max().item() <= _tol(ref)
+
+
+@pytest.mark.parametrize("m,k,n", [(4096, 4096, 4096), (1000, 1040, 776),
+                                   (37, 16, 5)])
+def test_s8_gemm_kernel_bit_equal(card, m, k, n):
+    g = torch.Generator().manual_seed(12)
+    a = torch.randint(-127, 128, (m, k), generator=g, dtype=torch.int8)
+    w = torch.randint(-127, 128, (n, k), generator=g, dtype=torch.int8)
+    a, w = a.to(card), w.to(card)
+    before = s8_gemm.s8_gemm.launches
+    out = s8_gemm.s8_gemm(a, w.t())
+    assert s8_gemm.s8_gemm.launches == before + 1
+    assert torch.equal(out, s8_gemm.s8_gemm_reference(a, w.t()))
+
+
+def test_s8_gemm_refuses_what_it_does_not_take(card):
+    a = torch.zeros(64, 40, dtype=torch.int8, device=card)
+    w = torch.zeros(64, 40, dtype=torch.int8, device=card)
+    with pytest.raises(ValueError):
+        s8_gemm.s8_gemm(a, w.t())  # K % 16
+    a = torch.zeros(64, 64, dtype=torch.int8, device=card)
+    with pytest.raises(ValueError):
+        s8_gemm.s8_gemm(a, a)  # b not column-major
+    with pytest.raises(TypeError):
+        s8_gemm.s8_gemm(a.float(), a.t())

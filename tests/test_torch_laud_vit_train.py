@@ -4,11 +4,12 @@
 `convert/from_jax.py::load_flax_variables` and policy heads randomised so
 that the gates close some decisions.
 
-Both sides run on the same Gumbel noise: the flax model is applied eagerly
+Both sides run on the same Gumbel noise: the flax model is applied jitted
 with ``rngs={'gumbel': key}`` while ``jax.random.gumbel`` is wrapped (in
-this process only) to record what it returns, in call order, and the port
-replays the record (`ops/gating.py::ReplayNoise`). Nothing in the JAX
-package changes for that."""
+this process only) so that an ordered ``jax.debug.callback`` records each
+draw the compiled function makes, in call order, and the port replays the
+record (`ops/gating.py::ReplayNoise`). Nothing in the JAX package changes
+for that."""
 
 import jax
 import jax.numpy as jnp
@@ -54,13 +55,15 @@ def _flax_params(model, x, seed):
 
 def _record_gumbel(monkeypatch):
     """Wraps ``jax.random.gumbel`` for this test: every array it returns
-    is appended, as numpy, to the list this returns."""
+    is appended, as numpy, to the list this returns, when the (jitted)
+    computation draws it; read the list after ``jax.effects_barrier()``."""
     recorded = []
     original = jax.random.gumbel
 
     def recording(key, shape=(), dtype=float, **kw):
         out = original(key, shape, dtype, **kw)
-        recorded.append(np.asarray(out))
+        jax.debug.callback(lambda v: recorded.append(np.asarray(v)), out,
+                           ordered=True)
         return out
 
     monkeypatch.setattr(jax.random, "gumbel", recording)
@@ -75,14 +78,16 @@ STAT_FIELDS = ("token_density", "head_density", "attn_density",
 
 def _train_pair(monkeypatch, kw, x, seed, temperature, jdtype=None,
                 geom=TRAIN_GEOM, img_size=32):
-    """The flax training forward (eager, noise recorded) and the port's on
-    the recorded noise; returns (flax output, port output, port model)."""
+    """The flax training forward (jitted, noise recorded) and the port's
+    on the recorded noise; returns (flax output, port output, port
+    model)."""
     jmodel = jlv.LAUDViT(**geom, **kw, dtype=jdtype)
     params = _flax_params(jlv.LAUDViT(**geom, **kw), x, seed=seed)
     recorded = _record_gumbel(monkeypatch)
-    ref = jmodel.apply({"params": params}, jnp.asarray(x), temperature,
-                       training=True,
-                       rngs={"gumbel": jax.random.PRNGKey(seed)})
+    ref = jax.jit(lambda p, x: jmodel.apply(
+        {"params": p}, x, temperature, training=True,
+        rngs={"gumbel": jax.random.PRNGKey(seed)}))(params, jnp.asarray(x))
+    jax.effects_barrier()
     cd = None if jdtype is None else torch.bfloat16
     size = {} if kw.get("stem") == "t2t" else {"img_size": img_size}
     model = tlv.LAUDViT(**geom, **kw, **size, device="cpu", compute_dtype=cd)
@@ -152,8 +157,9 @@ def test_training_gradients_match_flax(monkeypatch, gates, temperature):
                 + 10 * (jnp.maximum(o.flops_perc - 0.5, 0) ** 2).mean()
                 + 10 * (o.flops / 1e6 - 0.5) ** 2)
 
-    ref_loss, ref = jax.value_and_grad(jloss)(
+    ref_loss, ref = jax.jit(jax.value_and_grad(jloss))(
         jax.tree_util.tree_map(jnp.asarray, params))
+    jax.effects_barrier()
     model = tlv.LAUDViT(**TRAIN_GEOM, **gates, img_size=32, device="cpu")
     load_flax_variables(model, params)
     o = model(torch.from_numpy(x), temperature, training=True,

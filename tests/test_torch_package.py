@@ -48,7 +48,12 @@ def test_every_module_imports_without_jax():
                 "train.checkpoint", "train.main", "entry", "ops.masking",
                 "ops.sparse", "ops.norm", "ops.masked_block",
                 "models.maskers", "models.resnet", "models.laud_resnet",
-                "utils.flops"):
+                "utils.flops", "ops.s8_gemm", "sim.report", "sim.tiles",
+                "sim.models", "sim.hardware", "sim.h100", "sim.plan",
+                "infer.calibrate", "infer.export_pruned",
+                "infer.layerskip", "infer.engine", "tools.timing",
+                "tools.probe_int8", "tools.probe_block_budget",
+                "tools.probe_host"):
         assert f"laudnet_tpu_torch.{new}" in names
 
 
@@ -112,12 +117,14 @@ def test_kernel_input_checks_raise_before_any_pointer_is_passed():
 def test_ctypes_signatures_match_the_cuda_source():
     sources = sorted(_build.CSRC.glob("*.cu"))
     assert [s.name for s in sources] == ["masked_block.cu",
+                                         "probe_int8.cu",
                                          "vit_attention_bwd.cu",
                                          "vit_block.cu"]
     src = "".join(s.read_text() for s in sources)
     decls = dict(re.findall(r"\nint (lt_\w+)\(([^)]*)\)", src))
     assert set(decls) == set(_build._SIGNATURES)
     assert "lt_attention_bwd" in decls and "lt_masked_tail" in decls
+    assert "lt_s8_gemm" in decls
     # the shared header is hashed with the sources, so editing it rebuilds
     assert _build.CSRC / "mma_common.cuh" in _build._sources()
     for name, argtypes in _build._SIGNATURES.items():

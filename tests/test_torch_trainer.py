@@ -2,8 +2,9 @@
 `train.trainer.make_train_step` against two of
 `laudnet_tpu.train.trainer.make_train_step`, with the same student and
 teacher weights (`load_flax_variables`), the same batch and the same Gumbel
-noise (the JAX step runs eagerly while ``jax.random.gumbel`` is wrapped to
-record what it returns; the port replays the record).
+noise (the JAX step runs jitted while ``jax.random.gumbel`` is wrapped to
+record each draw the compiled step makes, through an ordered
+``jax.debug.callback``; the port replays the record).
 
 Every metric agrees to 1e-4 relative (f32), and the parameters after the
 last step agree leaf by leaf through the inverse mapping `to_flax_tree` (rtol 1e-4,
@@ -63,10 +64,24 @@ METRICS = ("loss", "loss_cls", "loss_kd", "loss_flops", "act_rate", "flops",
            "lr", "temperature", "top1", "top5")
 
 
-def _init(model, x, seed):
-    v = jax.jit(lambda: model.init({"params": jax.random.PRNGKey(seed)},
-                                   jnp.asarray(x), 1.0, training=False))()
-    return jax.tree_util.tree_map(np.array, v["params"])
+_INITS = {}
+
+
+def _init(gates, seed):
+    """The initial parameters of ``LAUDViT(**GEOM, **gates)`` from ``seed``,
+    as numpy (a fresh copy each call). The attention implementation holds
+    no parameter, so the reference model is initialised for both, with
+    ``lazy_init`` (the values of ``init``, without compiling the forward);
+    each (gates, seed) is initialised once per process."""
+    key = (tuple(sorted(gates.items())), seed)
+    if key not in _INITS:
+        model = jlv.LAUDViT(**GEOM, **gates)
+        v = jax.jit(lambda: model.lazy_init(
+            {"params": jax.random.PRNGKey(seed)},
+            jax.ShapeDtypeStruct((1, 32, 32, 3), jnp.float32), 1.0,
+            training=False))()
+        _INITS[key] = jax.tree_util.tree_map(np.array, v["params"])
+    return jax.tree_util.tree_map(np.copy, _INITS[key])
 
 
 def _randomise_policies(params, seed):
@@ -141,20 +156,21 @@ def test_two_train_steps_match_jax(monkeypatch, case):
     labels = rng.integers(0, 11, (batch,)).astype(np.int32)
     jmodel = jlv.LAUDViT(**GEOM, **gates, attn_impl=attn_impl)
     jteacher = jlv.LAUDViT(**GEOM, **DENSE, attn_impl=attn_impl)
-    params = _randomise_policies(_init(jmodel, images, 0), 1)
-    tparams = _init(jteacher, images, 2)
+    params = _randomise_policies(_init(gates, 0), 1)
+    tparams = _init(DENSE, 2)
     full_flops = jlv.vit_dense_flops(jmodel, input_size=32)
     assert full_flops == tlv.vit_dense_flops(
         tlv.LAUDViT(**GEOM, **gates, img_size=32, device="meta"),
         input_size=32)
 
-    # --- JAX: two eager steps, Gumbel noise recorded in call order -------
+    # --- JAX: two jitted steps, Gumbel noise recorded in call order -------
     recorded = []
     original = jax.random.gumbel
 
     def recording(key, shape=(), dtype=float, **kw):
         out = original(key, shape, dtype, **kw)
-        recorded.append(np.asarray(out))
+        jax.debug.callback(lambda v: recorded.append(np.asarray(v)), out,
+                           ordered=True)
         return out
 
     monkeypatch.setattr(jax.random, "gumbel", recording)
@@ -162,13 +178,14 @@ def test_two_train_steps_match_jax(monkeypatch, case):
     jopt = jo.make_sgd(params, weight_decay=1e-3)
     state = jt.create_train_state(jmodel, jopt, None, rng=None,
                                   variables={"params": params})
-    jstep = jt.make_train_step(jmodel, jteacher, {"params": tparams}, jopt,
-                               jcfg)
+    jstep = jax.jit(jt.make_train_step(jmodel, jteacher, {"params": tparams},
+                                       jopt, jcfg))
     jmetrics = []
     for _ in range(steps):
         state, m = jstep(state, jnp.asarray(images), jnp.asarray(labels),
                          jax.random.PRNGKey(7))
         jmetrics.append({k: float(v) for k, v in m.items()})
+    jax.effects_barrier()
     monkeypatch.setattr(jax.random, "gumbel", original)
     assert len(recorded) == steps * n_gates * GEOM["depth"]
 
