@@ -15,9 +15,12 @@ each raising on failure:
 3. kernels vs plain: B1 (`fused_vit_block`, also with a head gate), B2
    (`fused_vit_segment`), B6 (`fused_vit_block_int8`), B4
    (`fused_vit_attention`) and B5 (its backward) against their plain
-   PyTorch versions at DeiT-S and T2T-ViT-19 shapes, with times, bounds
-   and, for B4 and B5, the time of PyTorch's own fused attention call
-   (forward, backward) as a yardstick; B3 (`masked_bottleneck_tail`) at
+   PyTorch versions at DeiT-S and T2T-ViT-19 shapes (B4 and B5 also at a
+   ragged L = 137, at L = 257 and 577, DeiT-S at 256^2 and 384^2, and in
+   f32), with times, bounds and, for B4 and B5, the time of PyTorch's own
+   fused attention call (forward, backward) timed in turns with them, its
+   backend named, and the forward B4 replaced timed beside it; B3
+   (`masked_bottleneck_tail`) at
    the shape of the JAX bench (B=16, 28x28, 1024 -> 2048, patch 7) and at
    the flagship's four stride-1 block shapes at batch 128, beside the dense
    tail through cuDNN and the gather -> cuDNN -> scatter tail;
@@ -28,14 +31,20 @@ each raising on failure:
 5. the rest of ViT serving: LAUD-T2T-ViT-19 (performer stem, 14 layers,
    D=448, 7 heads of 64, hidden 1344) dense and with selection; DeiT-S
    W8A8 (`int8=True`) dense and with selection; DeiT-S with head gates;
-   and `LAUDViT(attn_impl='fused')` eval;
+   `LAUDViT(attn_impl='fused')` eval, bf16 and f32; the DeiT-S block
+   engine at 256^2 and 384^2 input (257 and 577 tokens), exact and
+   fast_math;
 6. DeiT-S training: ``train.main.main(--arch laud_deit_small --vit_attn
    fused --amp --batch_size 128)`` for 8 steps on synthetic data, with B4
    and B5 launch counts; then the same trainer on a repeated batch (the
    loss must fall), its first step held against the same step through the
-   plain attention (metrics and the gradients that B5 feeds), and step
-   time, img/s, peak memory and B4's and B5's share of a step;
-7. CNN serving: the flagship LAUD-ResNet-50 (`entry()`, then bs128 bf16
+   plain attention (metrics and the gradients that B5 feeds); 2 f32 steps
+   (``--vit_attn fused`` without ``--amp``) through the CLI, the first
+   held to the plain attention; and step time, img/s, peak memory and
+   B4's and B5's share of a step;
+7. CNN serving: the masked forwards (flagship f32 and bf16, channel and
+   layer mode) under ``torch.cuda.set_sync_debug_mode("error")``; the
+   flagship LAUD-ResNet-50 (`entry()`, then bs128 bf16
    dense-masked, sparse, W8A8, the f32 masks against the CPU's, B3 on one
    stride-1 block per stage);
 8. CNN training: ``train.main.main(--arch uni_resnet50 --amp)``;
@@ -49,7 +58,8 @@ each raising on failure:
     and serve LAUD-DeiT-S with live token gates, the flagship, a
     channel-mode LAUD-ResNet-50 (static export behind its fidelity gate,
     int8 allowed) and batch-1 layer skip (`infer/layerskip.py`, a
-    layer-mode LAUD-ResNet-50 and a layer-gated DeiT-S through B4); served
+    layer-mode LAUD-ResNet-50 and a layer-gated DeiT-S through B4; an
+    f32 LAUD-DeiT-S served through B4); served
     logits against the directly built path, each timed CNN form against
     the dense-masked graph (and each configured copy against the model
     built with its options), and the latency model's
@@ -186,7 +196,7 @@ CNN_TRAIN_STEPS = 4
 SRC = "laudnet_tpu_torch/csrc/vit_block.cu"
 SRC_S8 = "laudnet_tpu_torch/csrc/probe_int8.cu"
 SRC_TAIL = "laudnet_tpu_torch/csrc/masked_block.cu"
-SRC_BWD = "laudnet_tpu_torch/csrc/vit_attention_bwd.cu"
+SRC_ATT = "laudnet_tpu_torch/csrc/attention.cu"
 # B5 against its plain version: both round P, dS and the gated dO to bf16 at
 # the same points, so dqkv holds the ULPS bound above; dhead is an f32 sum
 # of L * 64 products per entry and is held to DHEAD_REL of its largest entry.
@@ -205,8 +215,19 @@ DHEAD_REL = 2e-3
 # dQ, dK or dV (a sign, a transpose, a missing scale) fails both by far.
 TRAIN_REL, GRAD_COS_MIN, GRAD_NORM_REL = 2e-2, 0.999, 1e-2
 TRAIN_STEPS = 8
-# Published dense peaks of the H100 SXM (NVIDIA data sheet) for the bounds.
-PEAK_BF16, PEAK_S8, PEAK_HBM = 989e12, 1979e12, 3.35e12
+F32_TRAIN_STEPS = 2
+# An f32 LAUDViT through B4 against the same model through the reference
+# attention: both f32, apart by the attention's summation order (~1e-6 of
+# an activation); a token gate at an f32 tie could flip one token, which
+# moves an image's logits by far less than this bound over the batch.
+F32_MODEL_REL = 1e-3
+# B4 and B5 in f32 against their f32 plain versions: full f32 sums on both
+# sides in other orders, so at most F32_REL of the largest output entry;
+# TF32 products (10 mantissa bits) would be off by ~1e-3 of it and fail.
+F32_REL = 1e-4
+# Published dense peaks of the H100 SXM (NVIDIA data sheet) for the bounds;
+# f32 outside the tensor cores for the f32 attention.
+PEAK_BF16, PEAK_S8, PEAK_HBM, PEAK_F32 = 989e12, 1979e12, 3.35e12, 67e12
 
 
 def run(cmd):
@@ -268,26 +289,30 @@ def block_bound(l, d, heads, hidden, layers=1, int8=False):
             "operations" if ops_s >= bytes_s else "bytes")
 
 
-def attention_bound(l, d, heads, gated):
-    """As `block_bound`, for the attention forward alone: 4*B*H*l*l*64
-    operations in bf16; qkv read once, the output written once, masks."""
-    m = B * l
-    ops_s = 4 * B * heads * l * l * 64 / PEAK_BF16
-    bytes_s = (m * 3 * d * 2 + m * d * 2 + m * 4
-               + (B * heads * 4 if gated else 0)) / PEAK_HBM
+def attention_bound(l, d, heads, gated, b=B, f32=False):
+    """As `block_bound`, for the attention forward alone: 4*b*H*l*l*64
+    operations in bf16 (f32: on the CUDA cores); qkv read once, the output
+    written once, masks."""
+    m, size = b * l, 4 if f32 else 2
+    ops_s = 4 * b * heads * l * l * 64 / (PEAK_F32 if f32 else PEAK_BF16)
+    bytes_s = (m * 3 * d * size + m * d * size + m * 4
+               + (b * heads * 4 if gated else 0)) / PEAK_HBM
     return (max(ops_s, bytes_s) * 1e3,
             "operations" if ops_s >= bytes_s else "bytes")
 
 
-def attention_bwd_bound(l, d, heads, gated):
+def attention_bwd_bound(l, d, heads, gated, b=B, f32=False):
     """As `attention_bound`, for the backward: five products of 2*l*l*64
-    operations per image and head (dV, dP, dQ, dK and the recomputed S; a
-    sixth, P.V, for the gate's gradient); qkv and dO read once, dqkv
-    written once, masks."""
-    m = B * l
-    ops_s = (6 if gated else 5) * 2 * B * heads * l * l * 64 / PEAK_BF16
-    bytes_s = (2 * m * 3 * d * 2 + m * d * 2 + m * 4
-               + (2 * B * heads * 4 if gated else 0)) / PEAK_HBM
+    operations per image and head (dV, dP, dQ, dK and S, whose statistics
+    the forward hands over; a sixth, P.V, for the gate's gradient); qkv,
+    dO and the forward's row statistics read once, dqkv written once,
+    masks."""
+    m, size = b * l, 4 if f32 else 2
+    ops_s = ((6 if gated else 5) * 2 * b * heads * l * l * 64
+             / (PEAK_F32 if f32 else PEAK_BF16))
+    bytes_s = (2 * m * 3 * d * size + m * d * size + m * 4
+               + b * heads * l * 8
+               + (2 * b * heads * 4 if gated else 0)) / PEAK_HBM
     return (max(ops_s, bytes_s) * 1e3,
             "operations" if ops_s >= bytes_s else "bytes")
 
@@ -342,24 +367,61 @@ def head_gate(g, heads, dev):
     return gate.to(dev)
 
 
-def compare(tag, fn, ref_fn, card, results, key, label, bound, library=None):
-    """Runs kernel and plain once, checks the ULPS bound, times both (and
-    the library yardstick), records a row."""
+def in_turns(fn, library, rounds=3, reps=10, chain=10):
+    """Kernel and yardstick timed in rounds of kernel, library, library,
+    kernel: the medians of each side's readings. A reading is a chain of
+    ``chain`` back-to-back calls between two CUDA events, so that each
+    call's host work (a Python wrapper, PyTorch's dispatch) hides under
+    the previous call's device time and the two sides compare as
+    kernels."""
+    k, lib = [], []
+    for _ in range(rounds):
+        for side, f in ((k, fn), (lib, library), (lib, library), (k, fn)):
+            side.append(statistics.median(chain_times(f, chain, reps, 2)))
+    return statistics.median(k), statistics.median(lib)
+
+
+def compare(tag, fn, ref_fn, card, results, key, label, bound, library=None,
+            f32=False, plain_reps=20):
+    """Runs kernel and plain once, checks the bound (ULPS bf16 ulps, or
+    F32_REL of the largest entry for ``f32``), times both (the kernel in
+    turns with the library yardstick where there is one), records a
+    row."""
     out, ref = fn(), ref_fn()
     torch.cuda.synchronize()
-    err, tol = (out.float() - ref.float()).abs().max().item(), ulp_tol(ref)
-    ms, plain_ms = time_ms(fn), time_ms(ref_fn)
-    lib_ms = None if library is None else time_ms(library)
+    err = (out.float() - ref.float()).abs().max().item()
+    tol = (F32_REL * ref.float().abs().max().item() if f32
+           else ulp_tol(ref))
+    if library is None:
+        ms, lib_ms = time_ms(fn), None
+    else:
+        ms, lib_ms = in_turns(fn, library)
+    plain_ms = time_ms(ref_fn, reps=plain_reps, warmup=1)
     bound_ms, bound_by = bound
     print(f"{tag}: max_abs_err {err:.6g} (tol {tol:.6g}); kernel {ms:.4f} ms, "
           f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by}"
-          + ("" if lib_ms is None else f", library {lib_ms:.4f} ms")
-          + f" [{card}]")
+          + ("" if lib_ms is None else f", library {lib_ms:.4f} ms (in "
+             f"turns)") + f" [{card}]")
     if not err <= tol:
         raise AssertionError(f"{tag} disagrees with plain: {err} > {tol}")
     results[key].append(dict(label=label, err=err, ms=ms, plain_ms=plain_ms,
                              bound_ms=bound_ms, bound_by=bound_by,
                              library_ms=lib_ms))
+
+
+def sdpa_backend(fn):
+    """The device kernels one call of ``fn`` launches (`torch.profiler`):
+    which of PyTorch's attention backends served it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = sorted({e.key for e in prof.key_averages()
+                    if e.device_type.name == "CUDA"})
+    return "; ".join(n[:80] for n in names)
 
 
 # B3's shapes: name, B, H = W, C, Co, patch, mask density, capacities
@@ -662,66 +724,66 @@ def phase_kernels(dev, card):
                 card, results, "fused_vit_block_int8", note,
                 block_bound(l, d, heads, hidden, int8=True))
 
-    # --- B4, the attention forward; yardstick: PyTorch's fused attention
-    # on the same qkv (strided per-head views, additive key mask), timed
-    # here and used nowhere in the port -------------------------------------
-    for geom, l, ragged, note in ((DEIT, L_FULL, False, "serving"),
-                                  (T2T, L_FULL, False, "t2t"),
-                                  (DEIT, 137, True, "")):
+    # --- B4 and B5, the attention forward and backward (csrc/attention.cu);
+    # yardsticks: PyTorch's fused attention on the same qkv (strided per-
+    # head views, additive key mask) and its backward (the forward's graph
+    # built once, only the backward timed), timed in turns with the
+    # kernels, here only, used nowhere in the port ----------------------------
+    att_cases = (  # geometry, L, ragged mask, dtype, plain repetitions, note
+        (DEIT, L_FULL, False, torch.bfloat16, 20, "serving"),
+        (T2T, L_FULL, False, torch.bfloat16, 20, "t2t"),
+        (DEIT, 137, True, torch.bfloat16, 20, ""),
+        (DEIT, 257, True, torch.bfloat16, 5, "256^2"),
+        (DEIT, 577, True, torch.bfloat16, 2, "384^2"),
+        (DEIT, L_FULL, True, torch.float32, 5, "f32"),
+        (DEIT, 257, False, torch.float32, 3, "f32 256^2"))
+    for geom, l, ragged, dtype, plain_reps, note in att_cases:
         d, heads = geom["d"], geom["heads"]
-        qkv = torch.randn(B, l, 3 * d, generator=g).to(dev, torch.bfloat16)
+        f32 = dtype == torch.float32
+        qkv = torch.randn(B, l, 3 * d, generator=g).to(dev, dtype)
+        cot = torch.randn(B, l, d, generator=g).to(dev, dtype)
         mask = key_mask(g, l, dev, ragged)
         q, k, v = qkv.reshape(B, l, 3, heads, 64).permute(2, 0, 3, 1, 4)
-        neg = ((1.0 - mask) * -1e9).to(torch.bfloat16)[:, None, None, :]
+        neg = ((1.0 - mask) * -1e9).to(dtype)[:, None, None, :]
+        sdpa = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=neg,
+                                                      scale=0.125)
+        qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+        lib_out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=neg,
+                                                 scale=0.125)
+        lib_cot = cot.reshape(B, l, heads, 64).permute(0, 2, 1, 3)
+        sdpa_bwd = lambda: torch.autograd.grad(lib_out, (qg, kg, vg), lib_cot,
+                                               retain_graph=True)
+        print(f"scaled_dot_product_attention at L={l} {dtype}: forward "
+              f"kernels [{sdpa_backend(sdpa)}], backward kernels "
+              f"[{sdpa_backend(sdpa_bwd)}]")
         for gated in (False, True):
             gate = head_gate(g, heads, dev) if gated else None
             args = (qkv, mask, gate, heads, 0.125)
-            compare(f"B4 fused_vit_attention D={d} L={l} "
-                    f"{'ragged' if ragged else 'full'} key mask"
-                    f"{' head mask' if gated else ''}",
+            where = (f"D={d} L={l} {'ragged' if ragged else 'full'} key mask"
+                     f"{' head mask' if gated else ''} {dtype}")
+            label = note if gated and note in ("serving", "t2t") else ""
+            compare(f"B4 fused_vit_attention {where}",
                     lambda: vit_attention.fused_vit_attention(*args),
                     lambda: vit_attention.reference_vit_attention(*args),
-                    card, results, "fused_vit_attention",
-                    note if gated else "", attention_bound(l, d, heads, gated),
-                    library=lambda: F.scaled_dot_product_attention(
-                        q, k, v, attn_mask=neg, scale=0.125))
-
-    # --- B5, the attention backward; yardstick: the backward of PyTorch's
-    # fused attention on the same shapes (its forward's graph is built once
-    # and only the backward is timed) ---------------------------------------
-    for geom, l, ragged, note in ((DEIT, L_FULL, False, "serving"),
-                                  (T2T, L_FULL, False, "t2t"),
-                                  (DEIT, 137, True, "")):
-        d, heads = geom["d"], geom["heads"]
-        qkv = torch.randn(B, l, 3 * d, generator=g).to(dev, torch.bfloat16)
-        cot = torch.randn(B, l, d, generator=g).to(dev, torch.bfloat16)
-        mask = key_mask(g, l, dev, ragged)
-        q, k, v = (t.detach().requires_grad_() for t in
-                   qkv.reshape(B, l, 3, heads, 64).permute(2, 0, 3, 1, 4))
-        neg = ((1.0 - mask) * -1e9).to(torch.bfloat16)[:, None, None, :]
-        lib_out = F.scaled_dot_product_attention(q, k, v, attn_mask=neg,
-                                                 scale=0.125)
-        lib_cot = cot.reshape(B, l, heads, 64).permute(0, 2, 1, 3)
-        for gated in (False, True):
-            gate = head_gate(g, heads, dev) if gated else None
-            args = (qkv, mask, gate, cot, heads, 0.125)
-            tag = (f"B5 fused_vit_attention backward D={d} L={l} "
-                   f"{'ragged' if ragged else 'full'} key mask"
-                   f"{' head mask' if gated else ''}")
-            compare(tag, lambda: vit_attention._launch_bwd(*args)[0],
+                    card, results, "fused_vit_attention", label,
+                    attention_bound(l, d, heads, gated, f32=f32),
+                    library=sdpa, f32=f32, plain_reps=plain_reps)
+            _, stats = vit_attention._launch_fwd(*args, return_stats=True)
+            bargs = (qkv, mask, gate, cot, heads, 0.125, stats)
+            tag = f"B5 fused_vit_attention backward {where}"
+            compare(tag, lambda: vit_attention._launch_bwd(*bargs)[0],
                     lambda: vit_attention.reference_vit_attention_bwd(
-                        *args)[0],
-                    card, results, "fused_vit_attention_bwd",
-                    note if gated else "",
-                    attention_bwd_bound(l, d, heads, gated),
-                    library=lambda: torch.autograd.grad(
-                        lib_out, (q, k, v), lib_cot, retain_graph=True))
+                        *bargs[:-1])[0],
+                    card, results, "fused_vit_attention_bwd", label,
+                    attention_bwd_bound(l, d, heads, gated, f32=f32),
+                    library=sdpa_bwd, f32=f32, plain_reps=plain_reps)
             if gated:
-                dhead = vit_attention._launch_bwd(*args)[1]
-                ref = vit_attention.reference_vit_attention_bwd(*args)[1]
+                dhead = vit_attention._launch_bwd(*bargs)[1]
+                ref = vit_attention.reference_vit_attention_bwd(
+                    *bargs[:-1])[1]
                 err = (dhead - ref).abs().max().item()
                 tol = DHEAD_REL * ref.abs().max().item()
-                closed = vit_attention._launch_bwd(*args)[0][0].reshape(
+                closed = vit_attention._launch_bwd(*bargs)[0][0].reshape(
                     l, 3, heads, 64)[:, :, 0]
                 print(f"{tag}: dhead max_abs_err {err:.6g} (tol {tol:.6g}); "
                       f"closed head dgate {dhead[0, 0].item():.6g}")
@@ -730,6 +792,30 @@ def phase_kernels(dev, card):
                 if closed.any() or dhead[0, 0].item() == 0.0:
                     raise AssertionError(f"{tag}: a closed head must have "
                                          "zero dqkv and a non-zero dgate")
+        del qkv, cot, lib_out, qg, kg, vg
+
+    # --- the forward that B4 replaced (B1's attention_kernel, which
+    # lt_attention still launches at L <= 256), timed in turns with the
+    # new one at DeiT-S L = 197 with the head mask -------------------------
+    d, heads = DEIT["d"], DEIT["heads"]
+    qkv = torch.randn(B, L_FULL, 3 * d, generator=g).to(dev, torch.bfloat16)
+    mask = key_mask(g, L_FULL, dev, False)
+    gate = head_gate(g, heads, dev)
+    old_out = torch.empty(B, L_FULL, d, device=dev, dtype=torch.bfloat16)
+    lib = _build.library()
+
+    def old_b4():
+        _build.check(lib, lib.lt_attention(
+            qkv.data_ptr(), mask.data_ptr(), gate.data_ptr(),
+            old_out.data_ptr(), B, L_FULL, heads, 0.125, 0,
+            torch.cuda.current_stream().cuda_stream), "old attention kernel")
+
+    new_ms, old_ms = in_turns(
+        lambda: vit_attention.fused_vit_attention(qkv, mask, gate, heads,
+                                                  0.125), old_b4)
+    print(f"B4 at D=384 L=197 head mask, in turns: the new forward "
+          f"{new_ms:.4f} ms, the forward it replaced (attention_kernel) "
+          f"{old_ms:.4f} ms [{card}]")
     return results
 
 
@@ -987,6 +1073,46 @@ def phase_slice2(dev, card, deit32, deit, images, deit_rates):
     print(f"LAUDViT eval: {f_ips:.1f} img/s with attn_impl='fused', "
           f"{r_ips:.1f} img/s with 'reference' (bs{B} bf16) [{card}]")
 
+    # --- the same in f32: B4's f32 form against the reference attention,
+    # both f32 (full f32 products, TF32 off), so apart by summation order
+    fused32 = laud_deit_small(layer_skip=False, attn_impl="fused")
+    fused32.load_state_dict(g32.state_dict())
+    fused32.eval()
+    with torch.no_grad():
+        out, delta = counted(lambda: fused32(images))
+        ref = g32(images)
+    n_b4 = delta["fused_vit_attention"]
+    top1, rel = agreement(out.logits, ref.logits)
+    print(f"LAUDViT attn_impl='fused' eval, f32: B4 launches {n_b4}, vs "
+          f"attn_impl='reference' top-1 agreement {top1:.4f}, relative "
+          f"logit error {rel:.6g} (bound {F32_MODEL_REL})")
+    if n_b4 != 12 or top1 < TOP1_MIN or not rel <= F32_MODEL_REL:
+        raise AssertionError("f32 attn_impl='fused' disagrees with "
+                             "'reference' or did not launch B4 12 times")
+    with torch.no_grad():
+        f_ips = img_per_s(lambda x: fused32(x).logits, images)
+        r_ips = img_per_s(lambda x: g32(x).logits, images)
+    print(f"LAUDViT eval f32: {f_ips:.1f} img/s with attn_impl='fused', "
+          f"{r_ips:.1f} img/s with 'reference' (bs{B}) [{card}]")
+    del fused32, g32, gated, fused
+
+    # --- the block engine past 256 tokens: DeiT-S at 256^2 (257 tokens)
+    # and 384^2 (577), dense, exact and fast_math; B1's attention launches
+    # go to the streaming forward of csrc/attention.cu ----------------------
+    for size in (256, 384):
+        l = (size // 16) ** 2 + 1
+        m32, m = model_pair(laud_deit_small, dev, 8, img_size=size)
+        imgs = torch.randn(B, size, size, 3, device=dev,
+                           generator=torch.Generator(dev).manual_seed(9))
+        names = []
+        for fast in (False, True):
+            name = f"deit_s_{size}px{'_fast' if fast else ''}"
+            serve_and_check(name, m32, m, imgs, dict(fast_math=fast),
+                            [l] * 12, {"fused_vit_block": 12})
+            names.append((name, dict(fast_math=fast)))
+        report_rates(names, m, imgs, card, plain_iters=3)
+        del m32, m, imgs
+
 
 # --- training ---------------------------------------------------------------
 
@@ -1049,7 +1175,7 @@ def phase_train(dev, card):
     images, labels = next(train_main.synthetic_batches(B, IMG, 1000, 1,
                                                        seed=0))
 
-    def run(steps):
+    def run(steps, args=args):
         tr = train_main.build_training(args, quiet)
         x, y = tr.to_device(images, labels)
         out = [tr.train_step(tr.state, x, y) for _ in range(steps)]
@@ -1108,6 +1234,53 @@ def phase_train(dev, card):
                              "the plain attention")
     del tr_k, tr_b, tr_p
 
+    # --- f32: --vit_attn fused without --amp, through the CLI, then its
+    # first step held to the same step through the plain attention --------
+    argv32 = [a for a in TRAIN_ARGV if a != "--amp"]
+    argv32[argv32.index("--steps_per_epoch") + 1] = str(F32_TRAIN_STEPS)
+    with tempfile.TemporaryDirectory() as out_dir:
+        best, delta = counted(lambda: train_main.main(
+            argv32 + ["--train_url", out_dir]))
+        with open(f"{out_dir}/log.txt") as f:
+            header, row = (line.strip().split(",") for line in f.readlines())
+    n_b4, n_b5 = delta["fused_vit_attention"], delta["fused_vit_attention_bwd"]
+    print(f"train.main without --amp (f32): best top1 {best:.4f}; B4 "
+          f"launches {n_b4}, B5 launches {n_b5}; log.txt "
+          f"{dict(zip(header, row))}")
+    if (n_b4 != 24 * F32_TRAIN_STEPS + 24 or n_b5 != 12 * F32_TRAIN_STEPS
+            or not all(math.isfinite(float(v)) for v in row)):
+        raise AssertionError("f32 train.main: launches or a metric wrong")
+    # The first f32 step against the same step through the plain attention,
+    # at the f32 bound, with the token gates off: a kept token's
+    # straight-through residue (1 +- 2^-24) reaches the additive key mask as
+    # a score offset of tens that turns with the last bit of the gate's soft
+    # value (ROADMAP queue 3), so with token gates on two f32 steps that
+    # differ by summation order are two samples, as in bf16. Head and layer
+    # gates multiply outputs, which carries no such jump.
+    args32 = train_main.parse_args(argv32 + ["--vit_skip", "head,layer"])
+    tr_k, _, _, first_k = run(1, args32)
+    with plain_attention():
+        (tr_p, _, _, first_p), delta = counted(lambda: run(1, args32),
+                                               main_path=False)
+    if any(delta.values()):
+        raise AssertionError(f"the plain f32 step launched a kernel: {delta}")
+    worst = max(abs(first_k[0][k] - first_p[0][k]) / abs(first_p[0][k])
+                for k in LOSS_PARTS)
+    gk, gp = qkv_grads(tr_k.model), qkv_grads(tr_p.model)
+    grad_rel = ((gk - gp).norm() / gp.norm()).item()
+    print("first f32 step (head and layer gates) through kernels vs plain "
+          "attention: " + ", ".join(
+              f"{k} {first_k[0][k]:.8g} / {first_p[0][k]:.8g}"
+              for k in LOSS_PARTS)
+          + f"; worst relative difference {worst:.6g}, qkv weights' "
+          f"gradients {grad_rel:.6g} of their norm apart (bound {F32_REL})")
+    if not all(math.isfinite(first_k[0][k]) for k in LOSS_PARTS):
+        raise AssertionError("f32 step: a loss part is not finite")
+    if not (worst <= F32_REL and grad_rel <= F32_REL):
+        raise AssertionError("the f32 step through the kernels disagrees "
+                             "with the plain attention")
+    del tr_k, tr_p
+
     # --- step time, memory, and where the step goes ------------------------
     torch.cuda.reset_peak_memory_stats()
     ms = time_ms(lambda: tr.train_step(tr.state, x, y), reps=6, warmup=2)
@@ -1129,7 +1302,7 @@ def phase_train(dev, card):
         return sum(e.device_time_total for e in events
                    if name in e.key) / steps / 1e3
 
-    b5_ms, b4_ms = share("attention_bwd_kernel"), share("attention_kernel")
+    b5_ms, b4_ms = share("attn_bwd_"), share("attn_fwd_")
     host = {e.key: e.count / steps for e in prof.key_averages()
             if e.key in ("cudaLaunchKernel", "cudaStreamSynchronize",
                          "cudaDeviceSynchronize", "aten::item",
@@ -1279,6 +1452,29 @@ def phase_cnn_serving(dev, card):
                          generator=torch.Generator(dev).manual_seed(1))
     state = mixed_gate_state(dev, images[:32])
     x8 = images[:8]
+
+    # --- no host sync in a masked forward: the flagship's dense-masked
+    # forward (f32 and bf16), a channel-mode and a layer-mode model run
+    # under torch.cuda.set_sync_debug_mode("error"), which raises at any
+    # synchronisation of the host with the card ---------------------------
+    for name, model in (
+            ("flagship f32", variant(state, dev)),
+            ("flagship bf16", variant(state, dev,
+                                      compute_dtype=torch.bfloat16)),
+            ("channel-mode bf16", channel_resnet(dev)),
+            ("layer-mode f32", layer_resnet(dev))):
+        with torch.no_grad():
+            model(x8, 0.1)
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                out = model(x8, 0.1)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        print(f"{name} dense-masked forward under sync debug mode 'error': "
+              f"no host sync; logits {tuple(out.logits.shape)}, flops on "
+              f"{out.flops.device}")
+        del model
 
     # --- f32 on the card against f32 on the CPU: the masks -----------------
     f32 = variant(state, dev)
@@ -1889,6 +2085,25 @@ def phase_engine(dev, card):
                                             measured, card)
     del lr, engine, dense1
 
+    # --- an f32 ViT served through B4, as the JAX engine serves every ViT
+    # through its fused attention (the block engine takes bf16 only) -------
+    f32_vit, _ = model_pair(laud_deit_small, dev, 10, token_skip=False,
+                            layer_skip=False, device=dev)
+    engine = ServingEngine(f32_vit)
+    plan = engine.calibrate(calib)
+    out, delta = served(engine, "f32 deit")
+    with torch.no_grad():
+        ref = f32_vit(images, engine.temperature, training=False).logits
+    _, rel = agreement(out, ref)
+    print(f"f32 LAUD-DeiT-S engine: plan {plan.mode} (served {plan.served}), "
+          f"launches {delta}; vs the model's own forward (reference "
+          f"attention) relative logit error {rel:.6g} (bound "
+          f"{F32_MODEL_REL})")
+    if not delta.get("fused_vit_attention") or not rel <= F32_MODEL_REL:
+        raise AssertionError("f32 deit: not served through B4, or its "
+                             "logits disagree with the model's")
+    del f32_vit, engine
+
     lv = layer_deit(dev)
     lsv = build_layer_skip_vit(lv)
     x1 = x1.to(torch.bfloat16)
@@ -1923,7 +2138,7 @@ REPLACES = {
     "block_variant": "tools/probe_block_budget.py:190",
     "s8_gemm": "tools/probe_int8.py:61",
 }
-SOURCES = {"fused_vit_attention_bwd": SRC_BWD,
+SOURCES = {"fused_vit_attention": SRC_ATT, "fused_vit_attention_bwd": SRC_ATT,
            "masked_bottleneck_tail": SRC_TAIL, "s8_gemm": SRC_S8}
 
 

@@ -8,8 +8,8 @@
 //   laudnet_tpu/ops/pallas/vit_block.py::fused_vit_block       (B1)
 //   laudnet_tpu/ops/pallas/vit_block.py::fused_vit_segment     (B2)
 //   laudnet_tpu/ops/pallas/vit_block.py::fused_vit_block_int8  (B6)
-//   laudnet_tpu/ops/pallas/vit_attention.py::_fused_fwd        (B4a)
-//   laudnet_tpu/ops/pallas/vit_attention.py::_fused_fwd_strips (B4)
+// (the attention forward on its own, B4a/B4, and its backward B5 are
+// attention.cu's).
 // The TPU kernel runs a whole layer per grid step with the layer's weights
 // resident in VMEM. One DeiT-S layer holds ~3.5 MB of bf16 weights against
 // 227 KB of shared memory per H100 block, so that shape does not transfer:
@@ -40,15 +40,10 @@
 // Token gate (vit_block.py:589-594): logits = bf16(x . w) then bf16(+ b),
 // keep if logit0 >= logit1, class token pinned, composed into the mask.
 //
-// B4a/B4 (the attention forward on its own) is this file's attention kernel
-// in its exact form with the (B, H) head gate: the TPU's whole-block and
-// strip variants differ only in how heads map to 128-lane pairs, which has
-// no counterpart here. It rounds where the strip kernel does
-// (vit_attention.py:261-275): p = bf16(softmax(s)) before P.V, the gate
-// multiplied into the f32 output, one rounding to bf16. It is bound by
-// bytes (one read of qkv, one write of the output: ~78 MB at DeiT-S bs128
-// against 7.6 GFLOP), so K, V and Q are staged once per block with cp.async
-// and scores never leave the SM.
+// The layer's attention launch (lt_attention) runs this file's
+// register-resident attention_kernel up to ATT_MAX_L = 256 keys, and past
+// that attention.cu's forward, which streams the keys in tiles, in the
+// exact or the deferred form with the same head gate.
 //
 // B6 keeps B1's launch structure and attention (exact form) and swaps the
 // four products for s8 x s8 -> s32 mma.sync m16n8k32 with the same cp.async
@@ -806,10 +801,22 @@ int lt_gemm_s8(const void* a, const void* xs, const void* w, const void* ws, con
                                              out, xs, ws, static_cast<cudaStream_t>(stream)));
 }
 
+int lt_attn_fwd(const void* qkv, const void* key_mask, const void* head_gate, void* out,
+                void* stats, int b, int l, int num_heads, float sm_scale, int deferred, int f32,
+                void* stream);  // attention.cu
+
 // ``head_gate``: (b, num_heads) f32 0/1 output gate, or null. ``softmax``:
-// SM_EXACT, SM_DEFERRED (fast_math), SM_LINEAR or SM_NOMAX.
+// SM_EXACT, SM_DEFERRED (fast_math), SM_LINEAR or SM_NOMAX. Past
+// ATT_MAX_L the exact and deferred forms go to attention.cu's forward,
+// which streams the keys; the ablations have no form there.
 int lt_attention(const void* qkv, const void* key_mask, const void* head_gate, void* out, int b,
                  int l, int num_heads, float sm_scale, int softmax, void* stream) {
+    if (l > ATT_MAX_L) {
+        if (softmax != SM_EXACT && softmax != SM_DEFERRED)
+            return static_cast<int>(cudaErrorInvalidValue);
+        return lt_attn_fwd(qkv, key_mask, head_gate, out, nullptr, b, l, num_heads, sm_scale,
+                           softmax == SM_DEFERRED, 0, stream);
+    }
     const bf16* Q = static_cast<const bf16*>(qkv);
     const float* KM = static_cast<const float*>(key_mask);
     const float* HG = static_cast<const float*>(head_gate);

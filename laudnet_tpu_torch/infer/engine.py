@@ -98,11 +98,6 @@ def _images(model, x):
     return x.to(next(model.parameters()).dtype)
 
 
-def _computes_bf16(model) -> bool:
-    return (getattr(model, "compute_dtype", None) == torch.bfloat16
-            or next(model.parameters()).dtype == torch.bfloat16)
-
-
 class ServingEngine:
     """Serving wrapper around a trained LAUD model.
 
@@ -179,11 +174,9 @@ class ServingEngine:
                 head_gating=getattr(model, "head_skip", False),
                 int8=int8, fast_math=self.fast_math)
         assert not int8, "int8 serving requires the block engine"
-        # otherwise ViTs serve the fused attention kernel (B4) on a card
-        # when the model computes in bf16, which B4 takes; an f32 model
-        # keeps the reference attention (`plan.notes` says so)
-        if (self._kind == "vit" and self._on_card(model)
-                and _computes_bf16(model)):
+        # otherwise ViTs serve the fused attention kernel (B4) on a card,
+        # bf16 or f32, as the JAX engine serves them through its kernel
+        if self._kind == "vit" and self._on_card(model):
             model = configured(model, attn_impl="fused")
 
         @torch.no_grad()
@@ -244,11 +237,11 @@ class ServingEngine:
                                              quantile=quantile, margin=margin)
             on_card = self._on_card(m)
             # price the implementation that will actually serve: the block
-            # engine for eligible models, the model's graph otherwise (with
-            # B4 when it computes in bf16)
+            # engine for eligible models, the model's graph with B4
+            # otherwise
             block = self._block_engine_ok(
                 configured(m, token_capacity=(1.0,) * m.depth))
-            fused_attention = on_card and not block and _computes_bf16(m)
+            fused_attention = on_card and not block
             self.plan = plan_vit_serving(
                 keeps, depth=m.depth, dim=m.dim, num_heads=m.num_heads,
                 mlp_ratio=m.mlp_ratio, patch_size=m.patch_size,
@@ -263,10 +256,10 @@ class ServingEngine:
                 dense_mode=("mask" if getattr(m, "token_skip", False)
                             else "head" if getattr(m, "head_skip", False)
                             else "dense"),
+                # B4 runs in the dtype the graph computes in
+                attention_f32=(getattr(m, "compute_dtype", None)
+                               or next(m.parameters()).dtype) == torch.float32,
                 **self._plan_kw())
-            if on_card and not block and not fused_attention:
-                self.plan.notes = ("f32 model: served with the reference "
-                                   "attention (kernel B4 takes bf16)")
             int8 = self.plan.mode.endswith("-int8")
             eff_mode = (self.plan.mode[:-len("-int8")] if int8
                         else self.plan.mode)

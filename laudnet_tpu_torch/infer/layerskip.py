@@ -93,8 +93,8 @@ def build_layer_skip_vit(model):
     :func:`build_layer_skip_resnet`. The branches are the model's own
     eval arithmetic (its products, LayerNorms and policy in its compute
     dtype); the attention branch runs the fused qkv-direct attention
-    (`ops/vit_attention.py::fused_vit_attention`: kernel B4 on a card,
-    which takes bf16, so on a card the model computes in bf16).
+    (`ops/vit_attention.py::fused_vit_attention`: kernel B4 on a card, in
+    the model's compute dtype, bf16 or f32).
 
     Returns ``forward(x) -> (logits, n_branches_run)`` for ``x`` of
     shape (1, H, W, 3); equals the model's eval logits with

@@ -229,8 +229,10 @@ class LAUDBottleneck(nn.Module):
         conv1_fpp = inplanes * width
         conv2_fpp = width * width * 9 // self.group_width
         conv3_fpp = width * out_planes
-        f32 = lambda v: torch.as_tensor(v, dtype=torch.float32,
-                                        device=x.device)
+        # a fill on the device: a Python number copied to the card would
+        # be a pageable host-to-device copy, and a stream sync, per block
+        f32 = lambda v: torch.full((), v, dtype=torch.float32,
+                                   device=x.device)
 
         # --- gating heads -------------------------------------------------
         one = torch.ones((), dtype=torch.float32, device=x.device)
@@ -432,8 +434,8 @@ class LAUDResNet(nn.Module):
                       fake=self.conv_impl == "int8_qat" and training)
         x = torch.relu(self.bn1(x, use_running_average=not training,
                                 compute_dtype=cd))
-        flops = torch.tensor(
-            float(c_in * x.shape[-1] * x.shape[1] * x.shape[2] * 49),
+        flops = torch.full(
+            (), float(c_in * x.shape[-1] * x.shape[1] * x.shape[2] * 49),
             dtype=torch.float32, device=x.device)
         x = max_pool_nhwc(x)
         flops = flops + x.shape[-1] * x.shape[1] * x.shape[2] * 9

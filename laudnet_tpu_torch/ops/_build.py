@@ -43,9 +43,12 @@ _SIGNATURES = {
     "lt_layernorm_quant": (_P, _I, _P, _P, _P, _P, _I, _I, _F, _P),
     # x, x_is_f32, q, scale, rows, d, stream
     "lt_rowquant": (_P, _I, _P, _P, _I, _I, _P),
-    # qkv, key_mask, head_gate, dout, dqkv, dhead, b, l, num_heads, sm_scale,
-    # stream
-    "lt_attention_bwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P),
+    # qkv, key_mask, head_gate, out, stats, b, l, num_heads, sm_scale,
+    # deferred, f32, stream
+    "lt_attn_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P),
+    # qkv, key_mask, head_gate, dout, stats, dqkv, dhead, delta, dgate_part,
+    # b, l, num_heads, sm_scale, f32, stream
+    "lt_attn_bwd": (_P,) * 9 + (_I, _I, _I, _F, _I, _P),
     # x1, identity, slots, n_valid, selected, w2t, a2, b2, w3t, a3, b3, mid,
     # out, b, h, w, c, co, patch, max_slots, stream
     "lt_masked_tail": (_P,) * 13 + (_I,) * 7 + (_P,),

@@ -39,7 +39,10 @@ NEG = -1e9
 DH = 64            # head width the attention kernel takes
 MAX_DIM = 1024     # LayerNorm kernel: 32 values per lane
 MAX_HIDDEN_INT8 = 4096  # row-quantise kernel: 128 values per lane
-MAX_LEN = 256      # attention kernel: a warp's score rows in registers
+# the attention ablations of the block-budget probe keep their score rows
+# in registers (csrc/vit_block.cu::attention_kernel); the production forms
+# take any L (longer rows go to csrc/attention.cu's streaming forward)
+MAX_LEN_ABLATION = 256
 EPI_QKV, EPI_PROJ, EPI_FC1, EPI_FC2 = 0, 1, 2, 3  # csrc/vit_block.cu
 # the body variants' codes in csrc/vit_block.cu (LnForm, Act, Softmax, VAR_*)
 LN_FORMS = ("twopass", "onepass", "scale")
@@ -296,9 +299,8 @@ def _check_cuda(x, masks, params_list, num_heads, head_gate=None,
     if d != num_heads * DH:
         raise ValueError(f"the attention kernel takes heads of {DH}: "
                          f"D={d}, num_heads={num_heads}")
-    if d > MAX_DIM or l > MAX_LEN:
-        raise ValueError(f"kernel limits: D <= {MAX_DIM}, L <= {MAX_LEN}; "
-                         f"got D={d}, L={l}")
+    if d > MAX_DIM:
+        raise ValueError(f"kernel limits: D <= {MAX_DIM}; got D={d}")
     for m in masks:
         if m.device != x.device or m.numel() != b * l:
             raise ValueError(f"masks must hold B*L={b * l} values on "
@@ -481,6 +483,10 @@ def fused_vit_block(x, key_mask, row_mask, params, *, num_heads: int,
 
     _check_cuda(x, (key_mask, row_mask), [params], num_heads, head_gate)
     b, l, _ = x.shape
+    if (variant is not None and variant.softmax in ("linear", "nomax")
+            and l > MAX_LEN_ABLATION):
+        raise ValueError(f"the {variant.softmax!r} softmax ablation takes "
+                         f"L <= {MAX_LEN_ABLATION}, got L={l}")
     out = _layer_cuda(library(), x, _f32(key_mask.reshape(b, l)),
                       _f32(row_mask.reshape(b, l)), params, num_heads, ln_eps,
                       fast_math, head_gate=_f32(head_gate), variant=variant)

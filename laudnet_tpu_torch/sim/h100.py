@@ -69,10 +69,11 @@ _LN_PASSES = 10           # plain f32 LayerNorm: casts, moments, affine
 # The dense-masked graph's gating heads and mask algebra, per block, as
 # its eval forward dispatches them (tests/test_torch_sim.py counts them):
 # a spatial masker with the mask upsample, the two dilations and their
-# bookkeeping 52 (the flagship: 1,062 operations a forward against the
-# dense ResNet-50's 230), a channel masker with its two mask multiplies 40.
-_SPATIAL_MASK_LAUNCHES = 52
-_CHANNEL_MASK_LAUNCHES = 40
+# bookkeeping 53 (the flagship: 1,079 operations a forward against the
+# dense ResNet-50's 230), a channel masker with its two mask multiplies 41;
+# each counts the fill that puts the block's masker FLOPs on the card.
+_SPATIAL_MASK_LAUNCHES = 53
+_CHANNEL_MASK_LAUNCHES = 41
 _SPARSE_LAUNCHES = 16     # select_patches, gather, scatter-add per block
 _B3_LAUNCHES = 15         # B3's selection, weight packing, 3 kernels
 # the block engine's kernels, each one launch through its ctypes wrapper
@@ -170,13 +171,25 @@ class H100Predictor:
                         rate, op="gemm")
 
     def attention(self, l: int, dim: int, heads: int) -> SimulationReport:
-        """B1's (and B4's) attention kernel: one block per 64 queries of a
+        """B1's attention kernel (L <= 256): one block per 64 queries of a
         head, all keys in 16-key tiles."""
         b = self.spec.batch_size
         lq, lk = -(-l // 64) * 64, -(-l // 16) * 16
         flops = 4.0 * b * heads * lq * lk * (dim // heads)
         return self._op(flops, _BF16 * b * l * 4 * dim + 4 * b * l,
                         self.spec.attention_rate, op="attention")
+
+    def fused_attention(self, l: int, dim: int, heads: int,
+                        f32: bool = False) -> SimulationReport:
+        """B4 (`csrc/attention.cu`) as ``attn_impl='fused'`` serves it, at
+        its own measured rate, bf16 or (``f32``) f32: qkv read once, the
+        output written once."""
+        b, s = self.spec.batch_size, self.spec
+        size = 4 if f32 else _BF16
+        rate = s.fused_attention_rate_f32 if f32 else s.fused_attention_rate
+        return self._op(4.0 * b * heads * l * l * (dim // heads),
+                        size * b * l * 4 * dim + 4 * b * l, rate,
+                        op="fused_attention")
 
     def block_layer(self, l: int, dim: int, heads: int, mlp_ratio: float,
                     int8: bool = False) -> SimulationReport:
@@ -216,10 +229,12 @@ class H100Predictor:
                           * _BF16, _SELECT_LAUNCHES, op="select")
 
     def eager_layer(self, l: int, dim: int, heads: int, mlp_ratio: float,
-                    fused_attention: bool) -> SimulationReport:
+                    fused_attention: bool,
+                    attention_f32: bool = False) -> SimulationReport:
         """One `LAUDViTBlock` eval forward outside the block engine: cuBLAS
-        products, the fused attention (B4) or the reference attention
-        (materialised f32 scores), and its elementwise passes."""
+        products, the fused attention (B4, its f32 kernel with
+        ``attention_f32``) or the reference attention (materialised f32
+        scores), and its elementwise passes."""
         s = self.spec
         b = s.batch_size
         rows, hidden = b * l, int(dim * mlp_ratio)
@@ -229,7 +244,7 @@ class H100Predictor:
             rep = rep + self._op(2.0 * rows * k * n, _BF16 * (
                 rows * k + k * n + rows * n), s.matmul_rate, op="matmul")
         if fused_attention:
-            rep = rep + self.attention(l, dim, heads)
+            rep = rep + self.fused_attention(l, dim, heads, attention_f32)
         else:
             scores = b * heads * l * l
             rep = rep + self._op(4.0 * scores * (dim // heads),
@@ -246,15 +261,16 @@ class H100Predictor:
                     num_classes: int = 1000, mode: str = "dense",
                     token_capacity: Optional[Sequence[float]] = None,
                     fused_attention: bool = False,
-                    fused_block: bool = False, int8: bool = False
-                    ) -> SimulationReport:
+                    fused_block: bool = False, int8: bool = False,
+                    attention_f32: bool = False) -> SimulationReport:
         """A LAUD-ViT forward as the port serves it; modes as
         `laudnet_tpu/sim/tpu.py::tpu_predict_vit` (``dense``, ``token``
         with ``token_capacity``, ``head``, ``layer``, ``mask``).
         ``fused_block`` prices `build_fused_vit` (B2 segments on selection
         paths, B1 per layer otherwise, B6 with ``int8``) at the fast-math
         kernels' measured rates (P1 puts the exact bodies within a few
-        percent of them)."""
+        percent of them). ``attention_f32``: the model's graph computes in
+        f32, so ``fused_attention`` runs B4's f32 kernel."""
         if int8 and not fused_block:
             raise ValueError("int8 pricing requires fused_block=True "
                              "(the W8A8 path is the block engine)")
@@ -291,7 +307,8 @@ class H100Predictor:
                 if mode in ("head", "layer"):
                     total = total + self.gate(1, dim, 2 * num_heads)
                 total = total + self.eager_layer(l, dim, num_heads, mlp_ratio,
-                                                 fused_attention)
+                                                 fused_attention,
+                                                 attention_f32)
         # final LayerNorm (plain f32) and the class head
         total = total + self.eager(_LN_PASSES * b * l * dim * 4, _LN_PASSES,
                                    op="final_norm")

@@ -22,6 +22,10 @@ class HopperSpec:
 
     * ``block_gemm_frac``: B1's bf16 GEMMs (mma.sync) as a fraction of
       ``peak_bf16``; ``attention_rate``: B1's attention kernel;
+      ``fused_attention_rate`` / ``fused_attention_rate_f32``: B4, the
+      attention forward of ``attn_impl='fused'`` (`csrc/attention.cu`), in
+      bf16 / f32, at DeiT-S L = 197, batch 128, with the head mask
+      (`chip_smoke.py`, the kernel checks);
       ``block_ln_frac``: B1's LayerNorm kernel as a fraction of
       ``mem_bandwidth`` (`tools/probe_block_budget.py --stages`, P1);
     * ``block_s8_gemm_frac``: B6's s8 GEMMs at the block's K (same probe),
@@ -49,6 +53,8 @@ class HopperSpec:
     name: str
     block_gemm_frac: float
     attention_rate: float
+    fused_attention_rate: float
+    fused_attention_rate_f32: float
     block_ln_frac: float
     block_s8_gemm_frac: float
     s8_gemm_frac: float
@@ -92,6 +98,12 @@ HOPPER_PRESETS = {
         "h100",
         block_gemm_frac=185.69 / 989,
         attention_rate=85.70e12,
+        # B4 at DeiT-S L = 197, batch 128, head mask: 4 * 128 * 6 * 197^2 *
+        # 64 FLOP in 0.1228 ms (bf16) and 0.8384 ms (f32), both from one
+        # run of `python3 chip_smoke.py kernels` on the same card (chains
+        # of ten calls, in turns with PyTorch's attention)
+        fused_attention_rate=7.630159872e9 / 0.1228e-3,
+        fused_attention_rate_f32=7.630159872e9 / 0.8384e-3,
         block_ln_frac=1789.57 / 3350,
         block_s8_gemm_frac=226.27 / 1979,
         s8_gemm_frac=525.00 / 1979,

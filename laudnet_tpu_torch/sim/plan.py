@@ -11,7 +11,8 @@ serving plan.
 
 The latency model is passed in (``predictor``); by default it is
 `sim/h100.py::H100Predictor` for ``spec`` (``"h100"``). A predictor
-offers ``predict_vit(**kw)``, ``predict_network(model, mode, rates,
+offers ``predict_vit(**kw)`` (with ``attention_f32``: B4 runs in f32),
+``predict_network(model, mode, rates,
 grans)`` and ``static_block(geom)`` (each a `SimulationReport`), and the
 terms ``launch_cost`` (seconds per extra launch of a static export),
 ``s8_conv_mult`` (int8 convolutions' rate over bf16's) and
@@ -89,10 +90,12 @@ def rank_vit_paradigms(p, *, depth: int = 12, dim: int = 384,
                        input_size: int = 224, patch_size: int = 16,
                        token_capacity: Optional[Sequence[float]] = None,
                        fused_attention: bool = False,
-                       fused_block: bool = False) -> dict:
+                       fused_block: bool = False,
+                       attention_f32: bool = False) -> dict:
     """Predicted latency (s/batch) per ViT paradigm. ``token`` uses the
     given capacities (required for it to be ranked). ``fused_attention``
-    prices the served ``attn_impl='fused'`` path; ``fused_block`` the
+    prices the served ``attn_impl='fused'`` path (B4's f32 kernel with
+    ``attention_f32``, for a graph that computes in f32); ``fused_block`` the
     fully fused block engine — each mode is priced at the implementation
     ServingEngine would actually serve it with: the block engine admits
     dense / token-selection / head-gated / token-gated-at-full-capacity
@@ -107,12 +110,12 @@ def rank_vit_paradigms(p, *, depth: int = 12, dim: int = 384,
         out[m] = p.predict_vit(
             mode=m, fused_attention=fused_attention or (fused_block
                                                         and not blk),
-            fused_block=blk, **geom).latency
+            fused_block=blk, attention_f32=attention_f32, **geom).latency
     if token_capacity is not None:
         out["token"] = p.predict_vit(
             mode="token", token_capacity=token_capacity,
             fused_attention=fused_attention, fused_block=fused_block,
-            **geom).latency
+            attention_f32=attention_f32, **geom).latency
     return out
 
 
@@ -126,6 +129,7 @@ def plan_vit_serving(keeps: Sequence[float], *, depth: int = 12,
                      snap_capacities: bool = False,
                      allow_int8: bool = False,
                      dense_mode: str = "mask",
+                     attention_f32: bool = False,
                      predictor=None) -> ExecutionPlan:
     """Build the serving plan from calibrated per-block keep fractions
     (`infer.calibrate.calibrate_token_capacity` output).
@@ -165,6 +169,7 @@ def plan_vit_serving(keeps: Sequence[float], *, depth: int = 12,
         p, depth=depth, dim=dim, num_heads=num_heads, mlp_ratio=mlp_ratio,
         input_size=input_size, patch_size=patch_size, token_capacity=caps,
         fused_attention=fused_attention, fused_block=fused_block,
+        attention_f32=attention_f32,
     )
     # snapped variant: convert fractions -> token counts -> tile grid ->
     # fractions (mirrors build_fused_vit's per-layer k computation)
@@ -185,7 +190,7 @@ def plan_vit_serving(keeps: Sequence[float], *, depth: int = 12,
             num_heads=num_heads, mlp_ratio=mlp_ratio,
             input_size=input_size, patch_size=patch_size,
             fused_attention=fused_attention,
-            fused_block=fused_block).latency
+            fused_block=fused_block, attention_f32=attention_f32).latency
 
     if fused_block:
         geo = dict(depth=depth, dim=dim, num_heads=num_heads,

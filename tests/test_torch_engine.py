@@ -29,6 +29,7 @@ from laudnet_tpu_torch.convert.from_jax import (to_flax_batch_stats,
 from laudnet_tpu_torch.infer.engine import ServingEngine, configured
 from laudnet_tpu_torch.models import laud_resnet as tlr
 from laudnet_tpu_torch.models import laud_vit as tlv
+from laudnet_tpu_torch.sim.h100 import H100Predictor
 
 torch.set_num_threads(1)
 
@@ -43,7 +44,8 @@ class V5eAdapter:
         self.s8_conv_mult = jplan._S8_CONV_MULT
         self.s8_export_derate = jplan._S8_EXPORT_DERATE
 
-    def predict_vit(self, **kw):
+    def predict_vit(self, attention_f32=False, **kw):
+        # the v5e model has one attention kernel for either dtype
         return tpu_predict_vit(self.p, **kw)
 
     def predict_network(self, model, mode, rates, grans):
@@ -192,6 +194,30 @@ def test_resnet_engine_int8_and_spatial_capacity(resnet):
         np.testing.assert_allclose(sp(xt, 0.1).logits.numpy(),
                                    spatial(xt, 0.1).logits.numpy(),
                                    atol=1e-4)
+
+
+@pytest.mark.parametrize("compute_dtype, f32", [
+    (None, True), (torch.float32, True), (torch.bfloat16, False)])
+def test_engine_prices_b4_in_the_graphs_dtype(vit, monkeypatch,
+                                              compute_dtype, f32):
+    """On a card an f32 ViT serves its own graph with B4 (the block engine
+    takes bf16 parameters), in the dtype that graph computes in; the plan
+    asks the predictor, injected or not, for that kernel."""
+    donor, x = vit
+    model = tlv.LAUDViT(**VIT, img_size=32, device="cpu",
+                        compute_dtype=compute_dtype).eval()
+    model.load_state_dict(donor.state_dict())
+    monkeypatch.setattr(ServingEngine, "_on_card", lambda self, m: True)
+    seen = []
+
+    class Spy(H100Predictor):
+        def predict_vit(self, **kw):
+            seen.append((kw["fused_attention"], kw["attention_f32"]))
+            return super().predict_vit(**kw)
+
+    engine = ServingEngine(model, batch_size=128, predictor=Spy())
+    engine.calibrate([torch.from_numpy(x)], quantile=1.0, margin=1e-6)
+    assert seen and set(seen) == {(True, f32)}
 
 
 def test_engine_refuses_a_mesh(vit):

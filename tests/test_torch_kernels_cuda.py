@@ -1,6 +1,6 @@
 """The CUDA kernels (`laudnet_tpu_torch/csrc/vit_block.cu`: the block B1,
-the segment B2, the W8A8 block B6 and the attention forward B4;
-`csrc/vit_attention_bwd.cu`: the attention backward B5;
+the segment B2 and the W8A8 block B6; `csrc/attention.cu`: the attention
+forward B4 and backward B5, bf16 and f32, any L;
 `csrc/masked_block.cu`: the block-sparse bottleneck tail B3; the probes'
 kernels, P1 = B1 with its body variants and P2 = `csrc/probe_int8.cu`'s s8
 GEMM) against their plain PyTorch versions, in bf16 (P2: int8) on the card.
@@ -27,7 +27,9 @@ output, the second affine and the residual add), so the four ulps hold for
 it too, and the cells it does not select are ``relu(identity)`` bit for
 bit. P1's variants (B1's wrapper with a ``variant``) round where their plain
 versions round and hold the same four ulps.
-P2's integer sums are exact on both sides: equal bit for bit.
+P2's integer sums are exact on both sides: equal bit for bit. The attention
+kernels in f32 sum in full f32 (FFMA) against f32 plain versions: 1e-4 of
+the largest entry (`_f32_tol`).
 """
 
 import pytest
@@ -206,16 +208,112 @@ def test_new_kernels_refuse_what_they_do_not_take(card):
                                        _layer(g, 128, 256, card),
                                        num_heads=2)
     qkv = torch.randn(2, 9, 384, generator=g).to(card, torch.bfloat16)
-    with pytest.raises(TypeError, match="bf16"):
-        vit_attention.fused_vit_attention(qkv.float(), mask, None, 2, 0.125)
-    with pytest.raises(ValueError, match="L <= 256"):
-        vit_attention.fused_vit_attention(
-            torch.zeros(1, 300, 384, device=card, dtype=torch.bfloat16),
-            torch.ones(1, 300, device=card), None, 2, 0.125)
+    # f32 and any L are taken now; heads other than 64 wide are not
+    with pytest.raises(ValueError, match="heads of 64"):
+        vit_attention.fused_vit_attention(qkv, mask, None, 4, 0.125)
+    with pytest.raises(ValueError, match="heads of 64"):
+        vit_attention.fused_vit_attention(qkv.float(), mask, None, 4, 0.125)
     with pytest.raises(TypeError, match="cotangent"):
         vit_attention._launch_bwd(qkv, mask, None,
                                   torch.ones(2, 9, 128, device=card), 2,
-                                  0.125)                        # f32
+                                  0.125, None)                  # f32
+
+
+def _f32_tol(ref):
+    """f32 kernels against f32 plain versions: full f32 sums on both sides
+    in other orders, 1e-4 of the largest entry (TF32's 10-bit mantissa
+    would miss it by an order of magnitude)."""
+    return 1e-4 * ref.float().abs().max().item()
+
+
+@pytest.mark.parametrize("gated", [False, True])
+@pytest.mark.parametrize("dtype,b,heads,l", [
+    (torch.bfloat16, 16, 6, 257), (torch.bfloat16, 8, 6, 577),
+    (torch.float32, 4, 3, 23), (torch.float32, 32, 6, 197),
+    (torch.float32, 8, 6, 257)])
+def test_attention_kernels_any_length_and_f32_match_plain(card, dtype, b,
+                                                          heads, l, gated):
+    """The forward and backward past the old 256-token limit (DeiT-S at
+    256^2 and 384^2) and in f32, through the Function, against the plain
+    versions: bf16 four ulps, f32 `_f32_tol`."""
+    g = torch.Generator().manual_seed(l + heads)
+    d = heads * 64
+    qkv = torch.randn(b, l, 3 * d, generator=g).to(card, dtype)
+    mask = (torch.rand(b, l, generator=g) > 0.3).float().to(card)
+    mask[:, 0] = 1.0
+    gate = _gate(g, b, heads, card) if gated else None
+    cot = torch.randn(b, l, d, generator=g).to(card, dtype)
+    tol = _tol if dtype == torch.bfloat16 else _f32_tol
+    qkv.requires_grad_()
+    before = (vit_attention.fused_vit_attention.launches,
+              vit_attention.fused_vit_attention.bwd_launches)
+    out = vit_attention.fused_vit_attention(qkv, mask, gate, heads, 0.125)
+    dqkv, = torch.autograd.grad(out, (qkv,), cot)
+    ref = vit_attention.reference_vit_attention(qkv.detach(), mask, gate,
+                                                heads, 0.125)
+    ref_dqkv, _ = vit_attention.reference_vit_attention_bwd(
+        qkv.detach(), mask, gate, cot, heads, 0.125)
+    torch.cuda.synchronize()
+    assert (vit_attention.fused_vit_attention.launches,
+            vit_attention.fused_vit_attention.bwd_launches) == (
+                before[0] + 1, before[1] + 1)
+    assert out.dtype == dqkv.dtype == dtype
+    assert (out.float() - ref.float()).abs().max().item() <= tol(ref)
+    err = (dqkv.float() - ref_dqkv.float()).abs().max().item()
+    assert err <= tol(ref_dqkv), (err, tol(ref_dqkv))
+    if gated:
+        assert not out[0, :, :64].any()
+
+
+@pytest.mark.parametrize("fast_math", [False, True])
+@pytest.mark.parametrize("l", [257, 577])
+def test_block_kernel_long_sequences_match_plain(card, l, fast_math):
+    """B1 at 257 and 577 tokens: its attention launch goes to the
+    streaming forward, exact or deferred, with the head gate."""
+    g = torch.Generator().manual_seed(l)
+    b, d, heads = 4, 384, 6
+    p = _layer(g, d, 4 * d, card)
+    x, mask = _inputs(g, b, l, d, card)
+    km, rm = mask.reshape(b, 1, l), mask.reshape(b, l, 1)
+    kw = dict(num_heads=heads, fast_math=fast_math,
+              head_gate=_gate(g, b, heads, card))
+    out = vit_block.fused_vit_block(x, km, rm, p, **kw)
+    ref = vit_block.fused_vit_block_reference(x, km, rm, p, **kw)
+    torch.cuda.synchronize()
+    assert (out.float() - ref.float()).abs().max().item() <= _tol(ref)
+
+
+def test_masked_cnn_forwards_do_not_sync_the_host(card):
+    """The flagship's dense-masked forward (f32 and bf16), a channel-mode
+    and a layer-mode LAUD-ResNet-50 run without one host synchronisation
+    (`torch.cuda.set_sync_debug_mode("error")` raises on any)."""
+    from laudnet_tpu_torch.entry import flagship
+    from laudnet_tpu_torch.models import uni_resnet50
+
+    x = torch.randn(2, 224, 224, 3, device=card,
+                    generator=torch.Generator(card).manual_seed(0))
+    models = [flagship(card).eval(),
+              flagship(card, compute_dtype=torch.bfloat16).eval(),
+              uni_resnet50(dyn_mode=("channel",) * 4,
+                           channel_dyn_granularity=(2, 2, 2, 2),
+                           channel_masker=("MLP",) * 4,
+                           channel_masker_layers=(1, 1, 1, 1),
+                           device=card).eval(),
+              uni_resnet50(dyn_mode=("layer",) * 4,
+                           channel_masker=("MLP",) * 4,
+                           channel_masker_layers=(1, 1, 1, 1),
+                           device=card).eval()]
+    with torch.no_grad():
+        for model in models:
+            model(x, 0.1)
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                out = model(x, 0.1)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            assert out.logits.shape == (2, 1000)
+            assert out.flops.device.type == "cuda"
 
 
 @pytest.mark.parametrize("gated", [False, True])

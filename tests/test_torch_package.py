@@ -116,17 +116,19 @@ def test_kernel_input_checks_raise_before_any_pointer_is_passed():
 
 def test_ctypes_signatures_match_the_cuda_source():
     sources = sorted(_build.CSRC.glob("*.cu"))
-    assert [s.name for s in sources] == ["masked_block.cu",
+    assert [s.name for s in sources] == ["attention.cu",
+                                         "masked_block.cu",
                                          "probe_int8.cu",
-                                         "vit_attention_bwd.cu",
                                          "vit_block.cu"]
     src = "".join(s.read_text() for s in sources)
     decls = dict(re.findall(r"\nint (lt_\w+)\(([^)]*)\)", src))
     assert set(decls) == set(_build._SIGNATURES)
-    assert "lt_attention_bwd" in decls and "lt_masked_tail" in decls
+    assert "lt_attn_fwd" in decls and "lt_attn_bwd" in decls
+    assert "lt_masked_tail" in decls
     assert "lt_s8_gemm" in decls
     # the shared header is hashed with the sources, so editing it rebuilds
     assert _build.CSRC / "mma_common.cuh" in _build._sources()
+    assert _build.CSRC / "wgmma.cuh" in _build._sources()
     for name, argtypes in _build._SIGNATURES.items():
         assert decls[name].count(",") + 1 == len(argtypes), name
 

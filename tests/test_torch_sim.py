@@ -52,7 +52,8 @@ class V5eAdapter:
         self.s8_conv_mult = jplan._S8_CONV_MULT
         self.s8_export_derate = jplan._S8_EXPORT_DERATE
 
-    def predict_vit(self, **kw):
+    def predict_vit(self, attention_f32=False, **kw):
+        # the v5e model has one attention kernel for either dtype
         return tpu_predict_vit(self.p, **kw)
 
     def predict_network(self, model, mode, rates, grans):
@@ -235,6 +236,37 @@ def test_h100_plan_takes_snapped_selection_for_deit_small():
     ks = sorted({int(c * 197) for c in plan.token_capacity if c < 1.0},
                 reverse=True)
     assert ks == [128, 96]
+
+
+def test_h100_prices_an_f32_graphs_b4_at_its_f32_rate():
+    """B4 under an f32 graph costs its f32 rate (`fused_attention_rate_f32`,
+    qkv and output in 4 bytes) in every layer, and the planner hands the
+    dtype to the predictor for every form it prices."""
+    p = H100Predictor()
+    s = p.spec
+    flops = 4.0 * s.batch_size * 6 * 197 ** 2 * 64
+    b4 = p.fused_attention(197, 384, 6)
+    b4_f32 = p.fused_attention(197, 384, 6, f32=True)
+    assert b4.latency >= flops / s.fused_attention_rate
+    assert b4_f32.latency >= flops / s.fused_attention_rate_f32
+    assert b4_f32.latency > b4.latency
+
+    def device(**kw):
+        return p.predict_vit(fused_attention=True, **kw).compute_latency
+
+    assert device(attention_f32=True) - device() == pytest.approx(
+        12 * (b4_f32.latency - b4.latency), rel=1e-9)
+
+    seen = []
+
+    class Spy(H100Predictor):
+        def predict_vit(self, **kw):
+            seen.append(kw["attention_f32"])
+            return super().predict_vit(**kw)
+
+    tplan.plan_vit_serving(KEEPS, fused_attention=True, attention_f32=True,
+                           predictor=Spy())
+    assert seen and all(seen)
 
 
 def test_h100_masked_launches_are_the_models():

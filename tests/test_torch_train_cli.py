@@ -206,12 +206,24 @@ def test_flags_and_defaults_are_the_jax_cli_s():
 
 
 def test_fused_attention_without_amp_is_refused_on_a_card_only():
-    """f32 fused attention raises on CUDA (the kernels take bf16); on the
-    CPU the plain versions run at f32, so it trains."""
-    args = tmain.parse_args(BASE + ["--vit_attn", "fused", "--device",
-                                    "cuda"])
-    with pytest.raises(ValueError, match="needs --amp"):
-        tmain.build_training(args, log=lambda *_: None)
+    """``--vit_attn fused`` without ``--amp`` is refused nowhere now (the
+    kernels take f32 too): it builds and takes one f32 step, and the
+    step's metrics equal those of the same step through ``--vit_attn
+    reference`` to f32 summation order (the Function's plain forward and
+    backward against autograd through the model's own attention)."""
+    images, labels = next(tmain.synthetic_batches(8, 32, 10, 1, seed=0))
+    metrics = {}
+    for attn in ("fused", "reference"):
+        args = tmain.parse_args(BASE + ["--vit_attn", attn])
+        tr = tmain.build_training(args, log=lambda *_: None)
+        x, y = tr.to_device(images, labels)
+        metrics[attn] = {k: float(v) for k, v in
+                         tr.train_step(tr.state, x, y).items()}
+    assert set(metrics["fused"]) == set(metrics["reference"])
+    for k, v in metrics["reference"].items():
+        assert np.isfinite(metrics["fused"][k]), k
+        np.testing.assert_allclose(metrics["fused"][k], v, rtol=1e-5,
+                                   atol=1e-6, err_msg=k)
 
 
 def test_without_a_device_flag_the_cli_asks_for_cuda(tmp_path):

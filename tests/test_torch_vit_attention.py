@@ -228,3 +228,129 @@ def test_plain_backward_rounds_where_the_kernel_rounds():
     err = (lo.float() - hi).abs().max().item()
     top = hi.abs().max().item()
     assert 0 < err <= 4 * 2.0 ** (math.floor(math.log2(top)) - 7)
+
+
+# --- any L, f32: the row statistics and the shape checks -------------------
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("heads,l", [(2, 257), (3, 300)],
+                         ids=["L257", "L300ragged"])
+def test_long_sequences_match_jax_kernel(heads, l, dt):
+    """Past the old 256-token limit (DeiT-S at 256^2 has 257 tokens): the
+    port's forward and backward against the JAX kernels in interpret mode,
+    two images, with the head mask, at the tolerances above."""
+    qkv, km, hm = _inputs(heads, seed=40 + l, b=2, l=l)
+    cot = np.random.default_rng(l).standard_normal(
+        (2, l, heads * 64)).astype(np.float32)
+    jdt, tdt = ((jnp.float32, torch.float32) if dt == "f32"
+                else (jnp.bfloat16, torch.bfloat16))
+
+    def f(a, g):
+        out = jva.fused_vit_attention(a, jnp.asarray(km), g, heads, 0.125, 2,
+                                      True)
+        return (out.astype(jnp.float32) * jnp.asarray(cot)).sum(), out
+
+    (_, jout), (jdq, jdh) = jax.value_and_grad(f, argnums=(0, 1),
+                                               has_aux=True)(
+        jnp.asarray(qkv, jdt), jnp.asarray(hm))
+    jout, jdq, jdh = (np.asarray(t.astype(jnp.float32))
+                      for t in (jout, jdq, jdh))
+    t = torch.from_numpy(qkv).to(tdt).requires_grad_()
+    g = torch.from_numpy(hm).requires_grad_()
+    out = tva.fused_vit_attention(t, torch.from_numpy(km), g, heads, 0.125)
+    (out.float() * torch.from_numpy(cot)).sum().backward()
+    np.testing.assert_allclose(out.float().detach().numpy(), jout,
+                               atol=_tol(dt, jout), rtol=0)
+    if dt == "f32":
+        np.testing.assert_allclose(t.grad.numpy(), jdq, rtol=3e-5, atol=2e-3)
+        np.testing.assert_allclose(g.grad.numpy(), jdh, rtol=3e-5, atol=2e-3)
+    else:
+        top = np.abs(jdq).max()
+        np.testing.assert_allclose(
+            t.grad.float().numpy(), jdq, rtol=0,
+            atol=2 * 2.0 ** (math.floor(math.log2(top)) - 7))
+        np.testing.assert_allclose(g.grad.numpy(), jdh, rtol=0,
+                                   atol=2e-2 * np.abs(jdh).max())
+    assert not out[0, :, :64].any()          # the closed head
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_plain_backward_from_row_statistics_equals_recompute(dt):
+    """The plain backward fed the plain forward's row statistics (what the
+    kernels hand from forward to backward) against the recomputing path:
+    at f32 within 1e-6 of the largest entry; at bf16 the roundings sit at
+    the same points, so all but a few entries are equal bit for bit (an
+    f32-order difference in P flips a rare rounding) and none is more than
+    one bf16 ulp of the largest entry apart."""
+    qkv, km, hm, cot = _bwd_inputs(3, seed=50, l=41)
+    tdt = torch.float32 if dt == "f32" else torch.bfloat16
+    args = (torch.from_numpy(qkv).to(tdt), torch.from_numpy(km),
+            torch.from_numpy(hm))
+    out, stats = tva.reference_vit_attention(*args, 3, 0.125,
+                                             return_stats=True)
+    assert torch.equal(out, tva.reference_vit_attention(*args, 3, 0.125))
+    assert stats.shape == (2, 3, 2, 41) and stats.dtype == torch.float32
+    c = torch.from_numpy(cot).to(tdt)
+    dq, dh = tva.reference_vit_attention_bwd(*args, c, 3, 0.125)
+    dq2, dh2 = tva.reference_vit_attention_bwd(*args, c, 3, 0.125,
+                                               stats=stats)
+    top = dq.float().abs().max().item()
+    err = (dq2.float() - dq.float()).abs().max().item()
+    if dt == "f32":
+        assert err <= 1e-6 * top
+        np.testing.assert_allclose(dh2.numpy(), dh.numpy(), rtol=0,
+                                   atol=1e-6 * dh.abs().max().item())
+    else:
+        assert dq2.dtype == torch.bfloat16
+        same = (dq2 == dq).float().mean().item()
+        assert same >= 0.99 and err <= 2.0 ** (math.floor(math.log2(top)) - 7)
+
+
+def test_row_statistics_are_max_and_sum_of_the_scores():
+    qkv, km, _ = _inputs(2, seed=60, b=2, l=70)
+    _, stats = tva.reference_vit_attention(
+        torch.from_numpy(qkv), torch.from_numpy(km), None, 2, 0.125,
+        return_stats=True)
+    x = torch.from_numpy(qkv).reshape(2, 70, 3, 2, 64)
+    s = torch.einsum("bqhd,bkhd->bhqk", x[:, :, 0], x[:, :, 1]) * 0.125
+    s = s + ((1 - torch.from_numpy(km)) * -1e9)[:, None, None, :]
+    m = s.amax(-1)
+    np.testing.assert_allclose(stats[:, :, 0].numpy(), m.numpy(), rtol=1e-6)
+    np.testing.assert_allclose(stats[:, :, 1].numpy(),
+                               torch.exp(s - m[..., None]).sum(-1).numpy(),
+                               rtol=1e-5)
+    p = torch.exp(s - stats[:, :, 0, :, None]) / stats[:, :, 1, :, None]
+    np.testing.assert_allclose(p.numpy(), torch.softmax(s, -1).numpy(),
+                               atol=1e-6)
+
+
+def test_kernel_checks_take_f32_and_any_length_and_refuse_the_rest():
+    """The wrapper's checks (run before any kernel): f32 and L > 256 pass;
+    heads other than 64 wide, masks of the wrong shape or device, other
+    dtypes and a backward without the forward's statistics raise."""
+    for dtype, l in ((torch.float32, 300), (torch.bfloat16, 577)):
+        qkv = torch.zeros(2, l, 3 * 128, dtype=dtype)
+        km, gate = tva._check_cuda(qkv, torch.ones(2, l), torch.ones(2, 2),
+                                   2)
+        assert km.shape == (2, l) and gate.shape == (2, 2)
+    qkv = torch.zeros(2, 9, 384)
+    with pytest.raises(ValueError, match="heads of 64"):
+        tva._check_cuda(qkv, torch.ones(2, 9), None, 4)       # heads of 32
+    with pytest.raises(TypeError, match="bf16 or f32"):
+        tva._check_cuda(qkv.half(), torch.ones(2, 9), None, 2)
+    with pytest.raises(ValueError, match="key_mask"):
+        tva._check_cuda(qkv, torch.ones(2, 8), None, 2)
+    with pytest.raises(ValueError, match="key_mask"):
+        tva._check_cuda(qkv, torch.ones(2, 9, device="meta"), None, 2)
+    with pytest.raises(ValueError, match="head_mask"):
+        tva._check_cuda(qkv, torch.ones(2, 9), torch.ones(2, 3), 2)
+    with pytest.raises(ValueError, match="head_mask"):
+        tva._check_cuda(qkv, torch.ones(2, 9),
+                        torch.ones(2, 2, device="meta"), 2)
+    with pytest.raises(ValueError, match="row statistics"):
+        tva._launch_bwd(qkv, torch.ones(2, 9), None, torch.zeros(2, 9, 128),
+                        2, 0.125, None)
+    with pytest.raises(TypeError, match="cotangent"):
+        tva._launch_bwd(qkv, torch.ones(2, 9), None,
+                        torch.zeros(2, 9, 128, dtype=torch.bfloat16), 2,
+                        0.125, torch.zeros(2, 2, 2, 9))
