@@ -12,7 +12,12 @@ each raising on failure:
 1. device: a CUDA card is required (there is no CPU path);
 2. build: the kernels of `laudnet_tpu_torch/csrc/` with nvcc, into
    `laudnet_tpu_torch/csrc/_build/`;
-3. kernels vs plain: B1 (`fused_vit_block`, also with a head gate), B2
+3. kernels vs plain: the GEMM core (`csrc/gemm_sm90.cuh`) that B1, B2,
+   B6, P1 and P2 run their products on, one product at a time at DeiT-S
+   bs128 (qkv, proj, fc1, fc2 with their epilogues, bf16 and s8), each
+   timed in turns with `F.linear` or `torch._int_mm` on the same operands,
+   with its TFLOP/s or TOP/s and its bound; B1 (`fused_vit_block`, also
+   with a head gate), B2
    (`fused_vit_segment`), B6 (`fused_vit_block_int8`), B4
    (`fused_vit_attention`) and B5 (its backward) against their plain
    PyTorch versions at DeiT-S and T2T-ViT-19 shapes (B4 and B5 also at a
@@ -52,8 +57,8 @@ each raising on failure:
    ``fast_tanh`` bodies) and P2 with every s8 rate
    (`tools/probe_int8.py --quick`); phase 3 also holds P1 (each carried
    body variant of B1 within ULPS of its plain version) and P2 (bit for
-   bit the integer product, at n = 4096 and a ragged shape) against their
-   plain versions;
+   bit the integer product, at n = 4096 and a ragged shape, timed in turns
+   with `torch._int_mm`) against their plain versions;
 10. the serving engine (`infer/engine.py::ServingEngine`): calibrate, plan
     and serve LAUD-DeiT-S with live token gates, the flagship, a
     channel-mode LAUD-ResNet-50 (static export behind its fidelity gate,
@@ -250,12 +255,20 @@ def phase_device():
 
 
 def phase_build():
+    """Builds the kernels and prints, per compiled kernel, what ptxas said:
+    registers, spills, and any warning (a setmaxnreg it ignored)."""
     path, secs, log = _build.build()
     _build.library()
     print(f"build: {path.name} in {secs:.1f} s")
-    for line in log.splitlines():
-        if "Used" in line or "spill" in line:
-            print("  ptxas:", line.strip())
+    name, facts = None, []
+    for line in log.splitlines() + ["ptxas info    : Compiling entry function"]:
+        line = line.strip()
+        if "Compiling entry function" in line:
+            if name is not None:
+                print(f"  ptxas: {name[:110]}: {'; '.join(facts)}")
+            name, facts = line.split("'")[1] if "'" in line else None, []
+        elif "spill" in line or "Used" in line or "warning" in line:
+            facts.append(line.replace("ptxas info    : ", ""))
 
 
 def time_ms(fn, reps=20, warmup=3):
@@ -588,7 +601,8 @@ def phase_tail_kernel(dev, card, results):
 
 def phase_probe_kernels(dev, card, results):
     """P2 (the s8 GEMM) bit for bit against its plain version at n = 4096
-    and a ragged shape, beside `torch._int_mm`; P1 (B1's body variants) at
+    and a ragged shape, timed in turns with `torch._int_mm`; P1 (B1's body
+    variants) at
     the JAX probe's shape (B=128, L=197, D=384): each carried mode within
     ULPS of its plain version. (That the production bodies are the
     parent commit's B1 bit for bit is shown by
@@ -605,11 +619,13 @@ def phase_probe_kernels(dev, card, results):
         if not torch.equal(out, ref):
             raise AssertionError(f"P2 s8_gemm {m}x{k}x{n} differs from the "
                                  "integer product")
-        ms = time_ms(lambda: s8_gemm.s8_gemm(a, w.t()))
+        kernel = lambda: s8_gemm.s8_gemm(a, w.t())
+        if m > 16 and k % 8 == 0 and n % 8 == 0:
+            ms, lib_ms = in_turns(kernel, lambda: torch._int_mm(a, w.t()))
+        else:
+            ms, lib_ms = time_ms(kernel), None
         plain_ms = time_ms(lambda: s8_gemm.s8_gemm_reference(a, w.t()),
                            reps=5)
-        lib_ms = (time_ms(lambda: torch._int_mm(a, w.t()))
-                  if m > 16 and k % 8 == 0 and n % 8 == 0 else None)
         ops_s = 2.0 * m * n * k / PEAK_S8
         bytes_s = (m * k + n * k + 4 * m * n) / PEAK_HBM
         bound, by = (max(ops_s, bytes_s) * 1e3,
@@ -618,7 +634,9 @@ def phase_probe_kernels(dev, card, results):
               f"product; kernel {ms:.4f} ms ({2.0 * m * n * k / ms / 1e9:.1f} "
               f"TOP/s), plain {plain_ms:.4f} ms, bound {bound:.4f} ms by "
               f"{by}" + ("" if lib_ms is None else
-                         f", torch._int_mm {lib_ms:.4f} ms") + f" [{card}]")
+                         f", torch._int_mm {lib_ms:.4f} ms "
+                         f"({2.0 * m * n * k / lib_ms / 1e9:.1f} TOP/s; in "
+                         f"turns)") + f" [{card}]")
         results["s8_gemm"].append(dict(
             label=label, err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound,
             bound_by=by, library_ms=lib_ms))
@@ -645,17 +663,118 @@ def phase_probe_kernels(dev, card, results):
                 block_bound(l, d, heads, hidden))
 
 
+PRODUCTS = ("qkv", "proj", "fc1", "fc2")
+
+
+def product_bound(name, m, d, hidden, s8):
+    """Least time (ms) of one of a layer's four products with its epilogue
+    on (m, d) rows: operations over the tensor-core peak of the operand
+    type; bytes over the memory rate: A and W read once (s8: with their f32
+    scales), the bias, the output written once (qkv and fc2 bf16, proj f32,
+    fc1 bf16 or, s8, f32), the residual (proj bf16 x, fc2 f32 x2) and the
+    row mask read once."""
+    n, k = {"qkv": (3 * d, d), "proj": (d, d), "fc1": (hidden, d),
+            "fc2": (d, hidden)}[name]
+    size = 1 if s8 else 2
+    out = 4 if name == "proj" or (s8 and name == "fc1") else 2
+    moved = (m * k + n * k) * size + n * 2 + m * n * out
+    if s8:
+        moved += (m + n) * 4
+    if name in ("proj", "fc2"):
+        moved += m * n * (2 if name == "proj" else 4) + m * 4
+    ops_s = 2.0 * m * n * k / (PEAK_S8 if s8 else PEAK_BF16)
+    bytes_s = moved / PEAK_HBM
+    return (max(ops_s, bytes_s) * 1e3,
+            "operations" if ops_s >= bytes_s else "bytes")
+
+
+def phase_products(dev, card):
+    """The GEMM core (`csrc/gemm_sm90.cuh`) one product at a time at
+    DeiT-S bs128 (M = 25,216): qkv, proj, fc1 and fc2 with their epilogues
+    (`vit_block.block_gemm`), bf16 and s8, each within ULPS of its plain
+    version and timed in turns with one library call on the same operands:
+    `F.linear` (cuBLAS, bf16 out, no epilogue beyond the bias) and
+    `torch._int_mm` (s32 out, no epilogue). Returns the rows."""
+    from laudnet_tpu_torch.ops.quant import quantize_rows, quantize_weight
+
+    g = torch.Generator().manual_seed(9)
+    m, d, hidden = B * L_FULL, DEIT["d"], DEIT["hidden"]
+    lib = _build.library()
+    rows = []
+    for name in PRODUCTS:
+        n, k = {"qkv": (3 * d, d), "proj": (d, d), "fc1": (hidden, d),
+                "fc2": (d, hidden)}[name]
+        w = {"weight": (torch.randn(n, k, generator=g) * k ** -0.5).to(
+            dev, torch.bfloat16),
+             "bias": (0.1 * torch.randn(n, generator=g)).to(dev,
+                                                            torch.bfloat16)}
+        a = torch.randn(m, k, generator=g).to(dev, torch.bfloat16)
+        kw = {}
+        if name in ("proj", "fc2"):
+            kw["row_mask"] = torch.ones(m, device=dev)
+            kw["resid"] = torch.randn(m, n, generator=g).to(
+                dev, torch.bfloat16 if name == "proj" else torch.float32)
+        wq, ws = quantize_weight(w["weight"])
+        q, qs = quantize_rows(a)
+        wq8 = {"weight_q": wq, "scale": ws, "bias": w["bias"]}
+        kw8 = dict(kw, a_scale=qs.reshape(-1).contiguous())
+        for s8 in (False, True):
+            args = (q, wq8, name) if s8 else (a, w, name)
+            kws = kw8 if s8 else kw
+            out = vit_block.block_gemm(*args, **kws)
+            ref = vit_block.block_gemm_reference(*args, **kws)
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs().max().item()
+            tol = ulp_tol(ref)
+            if not err <= tol:
+                raise AssertionError(f"GEMM core {name} s8={s8} disagrees "
+                                     f"with plain: {err} > {tol}")
+            library = ((lambda: torch._int_mm(q, wq.t())) if s8 else
+                       (lambda: F.linear(a, w["weight"], w["bias"])))
+            # timed through the bare launch into a kept output: the
+            # wrapper's checks are host time, not the kernel's
+            epi = PRODUCTS.index(name)
+            rm, res = kw.get("row_mask"), kw.get("resid")
+            if s8:
+                kernel = lambda: vit_block._gemm_s8(
+                    lib, (q, kw8["a_scale"]), wq8, n, k, epi, out, res, rm)
+            else:
+                kernel = lambda: vit_block._gemm(lib, a, w, n, k, epi, out,
+                                                 res, rm)
+            ms, lib_ms = in_turns(kernel, library)
+            bound, by = product_bound(name, m, d, hidden, s8)
+            unit = "TOP/s" if s8 else "TFLOP/s"
+            rate = 2.0 * m * n * k / 1e9
+            print(f"GEMM core {name} {'s8' if s8 else 'bf16'} M={m} N={n} "
+                  f"K={k}: max_abs_err {err:.6g} (tol {tol:.6g}); kernel "
+                  f"{ms:.4f} ms ({rate / ms:.1f} {unit}), "
+                  f"{'torch._int_mm' if s8 else 'F.linear'} {lib_ms:.4f} ms "
+                  f"({rate / lib_ms:.1f} {unit}; in turns), bound "
+                  f"{bound:.4f} ms by {by} [{card}]")
+            rows.append(dict(product=name, s8=s8, ms=ms, library_ms=lib_ms,
+                             bound_ms=bound, bound_by=by, err=err))
+    for s8 in (False, True):
+        mine = [r for r in rows if r["s8"] == s8]
+        print(f"GEMM core, the four {'s8' if s8 else 'bf16'} products of a "
+              f"DeiT-S layer at bs128: kernel "
+              f"{sum(r['ms'] for r in mine):.4f} ms, library "
+              f"{sum(r['library_ms'] for r in mine):.4f} ms, bound "
+              f"{sum(r['bound_ms'] for r in mine):.4f} ms [{card}]")
+    return rows
+
+
 def phase_kernels(dev, card):
     g = torch.Generator().manual_seed(0)
     results = {"fused_vit_block": [], "fused_vit_segment": [],
                "fused_vit_block_int8": [], "fused_vit_attention": [],
                "fused_vit_attention_bwd": [], "block_variant": [],
                "s8_gemm": []}
+    phase_products(dev, card)
     phase_tail_kernel(dev, card, results)
     phase_probe_kernels(dev, card, results)
 
-    # --- B1, DeiT-S and T2T widths (448 and 1344 are not multiples of the
-    # 128-wide GEMM tile: this guards its edge tiles) --------------------
+    # --- B1, DeiT-S and T2T widths (the GEMM core takes T2T's 448 and 1344
+    # in tiles 224 wide, DeiT-S's in tiles of 192) ----------------------
     cases = ((DEIT, L_FULL, False, False, "serving"),
              (DEIT, 137, True, False, ""),
              (DEIT, L_FULL, False, True, "head gate"),
@@ -1352,7 +1471,7 @@ def phase_profile(dev, card, forwards=5, rows=22):
                   f"{max(0.0, 1 - total / ms):.4f} [{card}]")
             for e in events[:rows]:
                 print(f"  {e.device_time_total / forwards / 1e3:9.4f} ms "
-                      f"x{e.count // forwards:<4d} {e.key[:110]}")
+                      f"x{e.count // forwards:<4d} {e.key[:140]}")
 
 
 # --- the CNN flagship ---------------------------------------------------------

@@ -1,6 +1,6 @@
 // Tensor-core, async-copy and warp primitives shared by the port's CUDA
 // sources (sm_90a): bf16 conversions, warp reductions, cp.async, ldmatrix
-// and mma.sync m16n8k16 (bf16) / m16n8k32 (s8). Everything is
+// and mma.sync m16n8k16 (bf16). Everything is
 // __forceinline__ in an anonymous namespace, so each source that includes
 // this file gets its own copy and the sources compile independently.
 
@@ -10,8 +10,6 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 typedef __nv_bfloat16 bf16;
 
@@ -67,19 +65,6 @@ __device__ __forceinline__ void mma16816(float (&d)[4], const unsigned (&a)[4], 
         "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
         "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// The s8 form: d += a (16x32 bytes, row) . b (32x8, col), s32 accumulate.
-// Register r of a thread holds the same BYTES of the tile as in the bf16
-// form above (four s8 values where that holds two bf16), and d has the same
-// layout, so both are fed by the same ldmatrix addresses.
-__device__ __forceinline__ void mma16816(int (&d)[4], const unsigned (&a)[4], unsigned b0,
-                                         unsigned b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, "
-        "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 

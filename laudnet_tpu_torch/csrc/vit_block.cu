@@ -20,14 +20,13 @@
 // layer's FLOPs (DeiT-S, L=197: ~0.70 of ~0.76 GFLOP per image). At bs128
 // each is one GEMM with M = 25,216 rows and ~290-310 FLOP per byte moved,
 // right at the bf16 ridge (~295), so they are bound by how well the GEMM
-// feeds the tensor cores. This version issues mma.sync m16n8k16 from
-// ldmatrix fragments with a four-stage cp.async ring and applies each
-// epilogue straight from the accumulator registers; wgmma/TMA (the only
-// way to the card's 989 TFLOP/s) are for later. LayerNorm is bound by
-// device-memory bytes (one read, one write per row). Attention keeps all
-// keys and values of one (image, head) in shared memory (L <= 197 at
-// DeiT-S: ~60 KB bf16) and each warp's 16 score rows in registers, so
-// scores never leave the SM.
+// feeds the tensor cores and hides its epilogue's bytes. They run on the
+// GEMM core of gemm_sm90.cuh (TMA ring, warp-specialised wgmma, persistent
+// tiles), each epilogue applied straight from the accumulator registers.
+// LayerNorm is bound by device-memory bytes (one read, one write per row).
+// Attention keeps all keys and values of one (image, head) in shared memory
+// (L <= 197 at DeiT-S: ~60 KB bf16) and each warp's 16 score rows in
+// registers, so scores never leave the SM.
 //
 // Rounding points follow the TPU kernel (vit_block.py:421-436, 589-617):
 //   h1 = bf16(LN(x)); qkv = bf16(h1 @ W + b); attention output bf16 per
@@ -46,11 +45,8 @@
 // exact or the deferred form with the same head gate.
 //
 // B6 keeps B1's launch structure and attention (exact form) and swaps the
-// four products for s8 x s8 -> s32 mma.sync m16n8k32 with the same cp.async
-// ring: per byte the s8 fragments of m16n8k32 are laid out exactly as the
-// bf16 fragments of m16n8k16, so one GEMM template serves both with K
-// counted in 2-byte units. It is bound by operations (the products run
-// against the card's 1,979 TOP/s s8 peak). Rounding points where B6 differs
+// four products for the core's s8 form (s8 x s8 -> s32, wgmma k32), bound
+// by bytes at twice the bf16 peak. Rounding points where B6 differs
 // from B1 (vit_block.py:272-287): LN1's output stays f32 into the quantiser
 // (B1 rounds it to bf16); LN2 reads the f32 x2 unrounded (B1 rounds it to
 // bf16 first); LayerNorm is always two-pass and GELU always the erf form;
@@ -75,9 +71,8 @@
 // computes C[m, n] = sum_k A[m, k] * W[n, k]: both operands are contiguous
 // along k. Every C entry point returns cudaGetLastError().
 
+#include "gemm_sm90.cuh"
 #include "mma_common.cuh"
-
-#include <type_traits>
 
 namespace {
 
@@ -319,19 +314,18 @@ rowquant_kernel(const void* __restrict__ xin, int8_t* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------------
-// GEMM: C[m, n] = sum_k A[m, k] W[n, k] + bias[n], followed by one of the
-// block's epilogues. 128x128 block tile, 8 warps of 64x32, four-stage
-// cp.async ring (80 KB of dynamic shared memory: two blocks per SM). Rows
-// are padded by 16 bytes so ldmatrix reads are free of bank conflicts. Rows
-// past M and N are zero-filled on load and not stored (N need not be a
-// multiple of the tile: 448 and 1344 are not); N must be a multiple of 8.
+// The layer's four weight products: C[m, n] = sum_k A[m, k] W[n, k] + bias[n]
+// through one of the block's epilogues, on the GEMM core of gemm_sm90.cuh
+// (TMA ring, warp-specialised wgmma, persistent tiles of 128 x BN). Rows
+// past M and columns past N are zero-filled on load and not stored; N % 8
+// == 0 (column pairs).
 //
-// Acc = float: bf16 operands, f32 accumulate, a stage holds 32 values of K
-// (K % 32 == 0). Acc = int: s8 operands, s32 accumulate (exact: 127^2 * K
-// < 2^31 up to K = 133,000), a stage holds 64 values of K (K % 64 == 0);
-// the operands are addressed in 2-byte units, K2 = K / 2 of them per row.
-// The s8 epilogue dequantises first, acc * xs[m] * ws[n] + bias[n], with
-// separately rounded multiplies and add as the plain version computes it.
+// bf16 operands: f32 sums, K % 8 == 0. s8 operands: exact s32 sums (127^2 *
+// K < 2^31 up to K = 133,000), K % 16 == 0; the epilogue dequantises first,
+// acc * xs[m] * ws[n] + bias[n], with separately rounded multiplies and add
+// as the plain version computes it. Keep the epilogues' arithmetic and its
+// order: tools/compare_b1_build.py holds B6's launches bit for bit to
+// earlier builds.
 // ---------------------------------------------------------------------------
 enum Epilogue {
     EPI_QKV = 0,   // bf16(acc + b)
@@ -340,15 +334,21 @@ enum Epilogue {
     EPI_FC2 = 3,   // bf16(x2 + (acc + b) * rmask)    (resid = f32 x2)
 };
 
-constexpr int GBM = 128, GBN = 128, GBK = 32, GLD = GBK + 8, GSTAGES = 4, GTHREADS = 256;
-constexpr int GSTAGE = (GBM + GBN) * GLD;  // elements per stage
-constexpr int GSMEM = GSTAGES * GSTAGE * 2;
-
 __device__ __forceinline__ float gelu_erf(float x) {
     return 0.5f * x * (1.f + erff(x * 0.7071067811865476f));
 }
+// fast_math's GELU, the tanh form with the hardware's tanh (tanh.approx,
+// relative error <= 2^-10.9, below the bf16 rounding of u that follows): a
+// single instruction where libdevice's tanhf takes about twenty, and fc1's
+// epilogue, run while the tensor cores wait, is bound by its instruction
+// count (PERF.md).
+__device__ __forceinline__ float tanh_approx(float y) {
+    float r;
+    asm("tanh.approx.f32 %0, %1;" : "=f"(r) : "f"(y));
+    return r;
+}
 __device__ __forceinline__ float gelu_tanh(float x) {
-    return 0.5f * x * (1.f + tanhf(0.7978845608028654f * (x + 0.044715f * x * x * x)));
+    return 0.5f * x * (1.f + tanh_approx(0.7978845608028654f * (x + 0.044715f * x * x * x)));
 }
 
 __device__ __forceinline__ float silu_gelu(float x) {
@@ -363,132 +363,83 @@ __device__ __forceinline__ float act_fn(float x) {
     else return x;
 }
 
-template <int EPI, typename Acc, int ACT = ACT_ERF, bool ROWMASK = true, bool BF16RES = false>
-__global__ void __launch_bounds__(GTHREADS, 2)
-gemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W,
-            const bf16* __restrict__ bias, int M, int N, int K,
-            const void* __restrict__ resid, const float* __restrict__ rmask,
-            void* __restrict__ out,
-            const float* __restrict__ xs, const float* __restrict__ ws) {
-    constexpr bool S8 = std::is_same<Acc, int>::value;
-    extern __shared__ __align__(128) unsigned char gemm_smem[];
-    bf16* sm = reinterpret_cast<bf16*>(gemm_smem);
-    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-    const int wm = warp >> 2, wn = warp & 3;  // 2 x 4 warps, 64 x 32 each
-    const int m0 = blockIdx.y * GBM, n0 = blockIdx.x * GBN;
+struct EpiArgs {
+    const bf16* bias;
+    const void* resid;
+    const float* rmask;
+    void* out;
+    const float* xs;  // s8: per-row activation scales
+    const float* ws;  // s8: per-column weight scales
+    int n;            // row stride of resid and out
+};
 
-    auto load_stage = [&](int st, int k0) {
-        bf16* as = sm + st * GSTAGE;
-        bf16* bs = as + GBM * GLD;
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-            const int c = tid + i * GTHREADS;
-            const int r = c >> 2, col = (c & 3) * 8;
-            const int gm = m0 + r, gn = n0 + r;
-            cp_async16(as + r * GLD + col, A + (size_t)(gm < M ? gm : 0) * K + k0 + col, gm < M);
-            cp_async16(bs + r * GLD + col, W + (size_t)(gn < N ? gn : 0) * K + k0 + col, gn < N);
-        }
+template <int EPI, bool S8, int ACT = ACT_ERF, bool ROWMASK = true, bool BF16RES = false>
+struct BlockEpilogue {
+    EpiArgs p;
+    struct Row {
+        float rm, rs;
     };
-
-    Acc acc[4][4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) acc[i][j][e] = Acc(0);
-
-    const int KT = K / GBK;
-#pragma unroll
-    for (int s = 0; s < GSTAGES - 1; ++s) {
-        if (s < KT) load_stage(s, s * GBK);
-        cp_async_commit();
+    __device__ __forceinline__ Row row(int gm) const {
+        Row r{1.f, 1.f};
+        if constexpr ((EPI == EPI_PROJ || EPI == EPI_FC2) && ROWMASK) r.rm = p.rmask[gm];
+        if constexpr (S8) r.rs = p.xs[gm];
+        return r;
     }
-    for (int kt = 0; kt < KT; ++kt) {
-        cp_async_wait<GSTAGES - 2>();
-        __syncthreads();  // stage kt landed; stage kt-1 is free to refill
-        const int nk = kt + GSTAGES - 1;
-        if (nk < KT) load_stage(nk % GSTAGES, nk * GBK);
-        cp_async_commit();
-        const bf16* as = sm + (kt % GSTAGES) * GSTAGE;
-        const bf16* bs = as + GBM * GLD;
-#pragma unroll
-        for (int kk = 0; kk < GBK / 16; ++kk) {
-            unsigned a[4][4], b[2][4];
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-                ldsm_x4(a[i], as + (wm * 64 + i * 16 + (lane & 15)) * GLD + kk * 16 + (lane >> 4) * 8);
-#pragma unroll
-            for (int j = 0; j < 2; ++j)
-                ldsm_x4(b[j], bs + (wn * 32 + j * 16 + (lane & 7) + ((lane >> 4) << 3)) * GLD +
-                                  kk * 16 + ((lane >> 3) & 1) * 8);
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-#pragma unroll
-                for (int j = 0; j < 4; ++j)
-                    mma16816(acc[i][j], a[i], b[j >> 1][(j & 1) * 2], b[j >> 1][(j & 1) * 2 + 1]);
+    // f32 results (bf16 outputs are rounded by the store), the arithmetic
+    // and its order as the plain version's
+    template <typename Acc>
+    __device__ __forceinline__ void apply(const Row& r, int gm, int gn, Acc& a0, Acc& a1) const {
+        const size_t o = (size_t)gm * p.n + gn;
+        const float rm = r.rm;
+        float v0 = static_cast<float>(a0);
+        float v1 = static_cast<float>(a1);
+        if constexpr (S8) {
+            const float2 w = *reinterpret_cast<const float2*>(p.ws + gn);
+            v0 = __fmul_rn(__fmul_rn(v0, r.rs), w.x);
+            v1 = __fmul_rn(__fmul_rn(v1, r.rs), w.y);
         }
-    }
-    cp_async_wait<0>();
-
-    // Epilogue from the accumulators: each thread owns column pairs.
-    const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-            const int gm = m0 + wm * 64 + i * 16 + g + h * 8;
-            if (gm >= M) continue;
-            const float rm = ((EPI == EPI_PROJ || EPI == EPI_FC2) && ROWMASK) ? rmask[gm] : 1.f;
-            float rs = 1.f;
-            if constexpr (S8) rs = xs[gm];
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-                const int gn = n0 + wn * 32 + j * 8 + t * 2;
-                if (gn >= N) continue;
-                const size_t o = (size_t)gm * N + gn;
-                float v0 = static_cast<float>(acc[i][j][h * 2]);
-                float v1 = static_cast<float>(acc[i][j][h * 2 + 1]);
-                if constexpr (S8) {
-                    v0 = __fmul_rn(__fmul_rn(v0, rs), ws[gn]);
-                    v1 = __fmul_rn(__fmul_rn(v1, rs), ws[gn + 1]);
-                }
-                v0 = __fadd_rn(v0, bf(bias[gn]));
-                v1 = __fadd_rn(v1, bf(bias[gn + 1]));
-                if (EPI == EPI_FC1 && S8) {
-                    *reinterpret_cast<float2*>(static_cast<float*>(out) + o) =
-                        make_float2(gelu_erf(v0), gelu_erf(v1));
-                } else if (EPI == EPI_QKV) {
-                    *reinterpret_cast<unsigned*>(static_cast<bf16*>(out) + o) = pack_bf16(v0, v1);
-                } else if (EPI == EPI_PROJ) {
-                    const float2 x = __bfloat1622float2(
-                        *reinterpret_cast<const __nv_bfloat162*>(static_cast<const bf16*>(resid) + o));
-                    float2 r;
-                    if constexpr (BF16RES) {
-                        r = make_float2(round_bf(x.x + round_bf(v0 * rm)),
-                                        round_bf(x.y + round_bf(v1 * rm)));
-                    } else if constexpr (ROWMASK) {
-                        r = make_float2(x.x + v0 * rm, x.y + v1 * rm);
-                    } else {
-                        r = make_float2(x.x + v0, x.y + v1);
-                    }
-                    *reinterpret_cast<float2*>(static_cast<float*>(out) + o) = r;
-                } else if (EPI == EPI_FC1) {
-                    *reinterpret_cast<unsigned*>(static_cast<bf16*>(out) + o) =
-                        pack_bf16(act_fn<ACT>(v0), act_fn<ACT>(v1));
-                } else if (!ROWMASK) {
-                    const float2 x2 = *reinterpret_cast<const float2*>(static_cast<const float*>(resid) + o);
-                    *reinterpret_cast<unsigned*>(static_cast<bf16*>(out) + o) =
-                        pack_bf16(x2.x + v0, x2.y + v1);
-                } else {
-                    const float2 x2 = *reinterpret_cast<const float2*>(static_cast<const float*>(resid) + o);
-                    *reinterpret_cast<unsigned*>(static_cast<bf16*>(out) + o) =
-                        pack_bf16(x2.x + v0 * rm, x2.y + v1 * rm);
-                }
+        const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p.bias + gn));
+        v0 = __fadd_rn(v0, b.x);
+        v1 = __fadd_rn(v1, b.y);
+        float2 y;
+        if constexpr (EPI == EPI_FC1 && S8) {
+            y = make_float2(gelu_erf(v0), gelu_erf(v1));
+        } else if constexpr (EPI == EPI_QKV) {
+            y = make_float2(v0, v1);
+        } else if constexpr (EPI == EPI_PROJ) {
+            const float2 x = __bfloat1622float2(
+                *reinterpret_cast<const __nv_bfloat162*>(static_cast<const bf16*>(p.resid) + o));
+            if constexpr (BF16RES) {
+                y = make_float2(round_bf(x.x + round_bf(v0 * rm)), round_bf(x.y + round_bf(v1 * rm)));
+            } else if constexpr (ROWMASK) {
+                y = make_float2(x.x + v0 * rm, x.y + v1 * rm);
+            } else {
+                y = make_float2(x.x + v0, x.y + v1);
             }
+        } else if constexpr (EPI == EPI_FC1) {
+            y = make_float2(act_fn<ACT>(v0), act_fn<ACT>(v1));
+        } else {
+            const float2 x2 = *reinterpret_cast<const float2*>(static_cast<const float*>(p.resid) + o);
+            y = ROWMASK ? make_float2(x2.x + v0 * rm, x2.y + v1 * rm) : make_float2(x2.x + v0, x2.y + v1);
+        }
+        set_float(a0, y.x);
+        set_float(a1, y.y);
+    }
+    // f32 out for proj (x2) and the s8 fc1, bf16 (rounded here) otherwise
+    static constexpr bool F32_OUT = EPI == EPI_PROJ || (EPI == EPI_FC1 && S8);
+    static constexpr int OUT_BYTES = F32_OUT ? 4 : 2;
+    template <typename Acc>
+    __device__ __forceinline__ void stage(void* dst, Acc a0, Acc a1) const {
+        if constexpr (F32_OUT) {
+            *reinterpret_cast<float2*>(dst) = make_float2(as_float(a0), as_float(a1));
+        } else {
+            *reinterpret_cast<unsigned*>(dst) = pack_bf16(as_float(a0), as_float(a1));
         }
     }
-}
+    __device__ __forceinline__ void store16(int gm, int gn, uint4 v) const {
+        *reinterpret_cast<uint4*>(static_cast<char*>(p.out) + ((size_t)gm * p.n + gn) * OUT_BYTES) = v;
+    }
+};
 
 // ---------------------------------------------------------------------------
 // Masked attention, dh = 64. One block per (query tile of 64, head, image),
@@ -695,59 +646,64 @@ cudaError_t launch_attention(const bf16* qkv, const float* key_mask, const float
     }
 }
 
-// ``k2``: K in 2-byte units (K for bf16 operands, K / 2 for s8).
-template <int EPI, typename Acc, int ACT = ACT_ERF, bool ROWMASK = true, bool BF16RES = false>
-cudaError_t launch_gemm(const void* a, const void* w, const void* bias, int m, int n, int k2,
-                        const void* resid, const void* rmask, void* out,
-                        const void* xs, const void* ws, cudaStream_t stream) {
-    auto kernel = gemm_kernel<EPI, Acc, ACT, ROWMASK, BF16RES>;
-    const cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, GSMEM);
-    if (err != cudaSuccess) return err;
-    const dim3 grid((n + GBN - 1) / GBN, (m + GBM - 1) / GBM), block(GTHREADS);
-    kernel<<<grid, block, GSMEM, stream>>>(
-        static_cast<const bf16*>(a), static_cast<const bf16*>(w), static_cast<const bf16*>(bias),
-        m, n, k2, resid, static_cast<const float*>(rmask), out,
-        static_cast<const float*>(xs), static_cast<const float*>(ws));
-    return cudaGetLastError();
+// The tile width: 224 for widths that 224 divides and 192 does not
+// (T2T-ViT-19's 448), else 192 (DeiT's widths and T2T's 1344; any other N
+// runs with a ragged last tile). WIDE = false keeps a body variant of the probe
+// (P1, DeiT-S widths only) at 192, one instantiation instead of two.
+template <typename T, class Epi, bool WIDE = true>
+cudaError_t launch_block_gemm(const void* a, const void* w, int m, int n, int k, const Epi& epi,
+                              cudaStream_t s) {
+    if (WIDE && n % 224 == 0 && n % 192 != 0) return launch_gemm_sm90<T, 224>(a, w, m, n, k, epi, s);
+    return launch_gemm_sm90<T, 192>(a, w, m, n, k, epi, s);
 }
 
-// bf16 operands: the epilogue's variant (see VAR_*) picks the instantiation.
+// bf16 operands: the epilogue's variant (see VAR_*) picks the instantiation;
+// the production bodies (row mask on, f32 residual, erf or tanh GELU) take
+// both tile widths, the probe's ablations 192.
 cudaError_t dispatch_gemm_bf16(int epilogue, int variant, const void* a, const void* w,
                                const void* bias, int m, int n, int k, const void* resid,
                                const void* rmask, void* out, cudaStream_t s) {
     const bool rowmask = !(variant & VAR_NO_ROWMASK), bf16res = variant & VAR_BF16_RES;
-#define LT_GEMM(...) launch_gemm<__VA_ARGS__>(a, w, bias, m, n, k, resid, rmask, out, nullptr, nullptr, s)
+    const EpiArgs p{static_cast<const bf16*>(bias), resid, static_cast<const float*>(rmask), out,
+                    nullptr, nullptr, n};
+#define LT_GEMM(WIDE, ...) \
+    launch_block_gemm<bf16, BlockEpilogue<__VA_ARGS__>, WIDE>(a, w, m, n, k, BlockEpilogue<__VA_ARGS__>{p}, s)
     switch (epilogue) {
-        case EPI_QKV: return LT_GEMM(EPI_QKV, float);
+        case EPI_QKV: return LT_GEMM(true, EPI_QKV, false);
         case EPI_PROJ:
-            if (bf16res) return rowmask ? LT_GEMM(EPI_PROJ, float, ACT_ERF, true, true)
+            if (bf16res) return rowmask ? LT_GEMM(false, EPI_PROJ, false, ACT_ERF, true, true)
                                         : cudaErrorInvalidValue;
-            return rowmask ? LT_GEMM(EPI_PROJ, float) : LT_GEMM(EPI_PROJ, float, ACT_ERF, false);
+            return rowmask ? LT_GEMM(true, EPI_PROJ, false)
+                           : LT_GEMM(false, EPI_PROJ, false, ACT_ERF, false);
         case EPI_FC1:
             switch (variant & 3) {
-                case ACT_ERF: return LT_GEMM(EPI_FC1, float, ACT_ERF);
-                case ACT_TANH: return LT_GEMM(EPI_FC1, float, ACT_TANH);
-                case ACT_SILU: return LT_GEMM(EPI_FC1, float, ACT_SILU);
-                default: return LT_GEMM(EPI_FC1, float, ACT_NONE);
+                case ACT_ERF: return LT_GEMM(true, EPI_FC1, false, ACT_ERF);
+                case ACT_TANH: return LT_GEMM(true, EPI_FC1, false, ACT_TANH);
+                case ACT_SILU: return LT_GEMM(false, EPI_FC1, false, ACT_SILU);
+                default: return LT_GEMM(false, EPI_FC1, false, ACT_NONE);
             }
         case EPI_FC2:
-            return rowmask ? LT_GEMM(EPI_FC2, float) : LT_GEMM(EPI_FC2, float, ACT_ERF, false);
+            return rowmask ? LT_GEMM(true, EPI_FC2, false)
+                           : LT_GEMM(false, EPI_FC2, false, ACT_ERF, false);
         default: return cudaErrorInvalidValue;
     }
 #undef LT_GEMM
 }
 
 cudaError_t dispatch_gemm_s8(int epilogue, const void* a, const void* w, const void* bias, int m,
-                             int n, int k2, const void* resid, const void* rmask, void* out,
+                             int n, int k, const void* resid, const void* rmask, void* out,
                              const void* xs, const void* ws, cudaStream_t s) {
+    const EpiArgs p{static_cast<const bf16*>(bias), resid, static_cast<const float*>(rmask), out,
+                    static_cast<const float*>(xs), static_cast<const float*>(ws), n};
+#define LT_GEMM(EPI) launch_block_gemm<int8_t>(a, w, m, n, k, BlockEpilogue<EPI, true>{p}, s)
     switch (epilogue) {
-        case EPI_QKV: return launch_gemm<EPI_QKV, int>(a, w, bias, m, n, k2, resid, rmask, out, xs, ws, s);
-        case EPI_PROJ: return launch_gemm<EPI_PROJ, int>(a, w, bias, m, n, k2, resid, rmask, out, xs, ws, s);
-        case EPI_FC1: return launch_gemm<EPI_FC1, int>(a, w, bias, m, n, k2, resid, rmask, out, xs, ws, s);
-        case EPI_FC2: return launch_gemm<EPI_FC2, int>(a, w, bias, m, n, k2, resid, rmask, out, xs, ws, s);
+        case EPI_QKV: return LT_GEMM(EPI_QKV);
+        case EPI_PROJ: return LT_GEMM(EPI_PROJ);
+        case EPI_FC1: return LT_GEMM(EPI_FC1);
+        case EPI_FC2: return LT_GEMM(EPI_FC2);
         default: return cudaErrorInvalidValue;
     }
+#undef LT_GEMM
 }
 
 }  // namespace
@@ -786,7 +742,7 @@ int lt_layernorm(const void* x, int x_f32, void* out, const void* w, const void*
 // ``variant``: the fc1 activation and the epilogue flags (VAR_*).
 int lt_gemm(const void* a, const void* w, const void* bias, int m, int n, int k, int epilogue,
             const void* resid, const void* rmask, int variant, void* out, void* stream) {
-    if (k % GBK != 0 || n % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
+    if (k % 8 != 0 || n % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
     return static_cast<int>(dispatch_gemm_bf16(epilogue, variant, a, w, bias, m, n, k, resid,
                                                rmask, out, static_cast<cudaStream_t>(stream)));
 }
@@ -796,9 +752,9 @@ int lt_gemm(const void* a, const void* w, const void* bias, int m, int n, int k,
 int lt_gemm_s8(const void* a, const void* xs, const void* w, const void* ws, const void* bias,
                int m, int n, int k, int epilogue, const void* resid, const void* rmask,
                void* out, void* stream) {
-    if (k % (2 * GBK) != 0 || n % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
-    return static_cast<int>(dispatch_gemm_s8(epilogue, a, w, bias, m, n, k / 2, resid, rmask,
-                                             out, xs, ws, static_cast<cudaStream_t>(stream)));
+    if (k % 16 != 0 || n % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(dispatch_gemm_s8(epilogue, a, w, bias, m, n, k, resid, rmask, out,
+                                             xs, ws, static_cast<cudaStream_t>(stream)));
 }
 
 int lt_attn_fwd(const void* qkv, const void* key_mask, const void* head_gate, void* out,

@@ -54,6 +54,8 @@ _SIGNATURES = {
     "lt_masked_tail": (_P,) * 13 + (_I,) * 7 + (_P,),
     # a, b, c, m, n, k, stream
     "lt_s8_gemm": (_P, _P, _P, _I, _I, _I, _P),
+    # base, rows, k, reps (the host's cost of the GEMM core's descriptors)
+    "lt_tma_encode": (_P, _I, _I, _I),
 }
 
 

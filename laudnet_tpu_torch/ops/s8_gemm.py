@@ -1,7 +1,9 @@
 """s8 x s8 -> s32 GEMM (P2): exact integer products of int8 codes.
 
 Counterpart of the TPU probe kernel `tools/probe_int8.py::rate_pallas_s8`,
-hand-written for the H100 in ``csrc/probe_int8.cu``. The probe
+hand-written for the H100 in ``csrc/probe_int8.cu``: the s8 form of the
+port's GEMM core (``csrc/gemm_sm90.cuh``, TMA and wgmma, the core of the
+W8A8 block's products) with a raw int32 store. The probe
 (`laudnet_tpu_torch/tools/probe_int8.py`) rates it beside the library's
 s8 product; the latency model (`sim/h100.py`) reads that rate.
 

@@ -15,7 +15,10 @@ weights with exact integer sums; everything else stays float.
 Each wrapper takes the plain PyTorch version below only for tensors on the
 CPU. For CUDA tensors it launches the hand-written kernels of
 ``csrc/vit_block.cu`` (bf16 only) or raises; it never falls back. Each
-wrapper counts its kernel launches in ``<wrapper>.launches``.
+wrapper counts its kernel launches in ``<wrapper>.launches``. The four
+weight products of a layer run on the GEMM core of ``csrc/gemm_sm90.cuh``
+(TMA and wgmma, bf16 or s8); `block_gemm` launches one of them alone, with
+its epilogue, beside its plain version `block_gemm_reference`.
 
 A layer's parameters are a dict in torch.nn.Linear layout:
 ``{"ln1", "qkv", "proj", "ln2", "fc1", "fc2"}``, each ``{"weight",
@@ -33,7 +36,8 @@ import dataclasses
 
 import torch
 
-from laudnet_tpu_torch.ops.quant import int8_linear, quantize_weight
+from laudnet_tpu_torch.ops.quant import (int8_linear, int_matmul,
+                                        quantize_weight)
 
 NEG = -1e9
 DH = 64            # head width the attention kernel takes
@@ -314,7 +318,7 @@ def _check_cuda(x, masks, params_list, num_heads, head_gate=None,
     dtypes = {"weight": torch.bfloat16, "bias": torch.bfloat16,
               "weight_q": torch.int8, "scale": torch.float32}
     kinds = {"weight_q", "scale", "bias"} if int8 else {"weight", "bias"}
-    step = 64 if int8 else 32  # values of K in one stage of the GEMM's ring
+    step = 16 if int8 else 8  # K of 16 bytes: TMA's row stride
     for p in params_list:
         for name in ("qkv", "proj", "fc1", "fc2"):
             if set(p[name]) != kinds:
@@ -322,8 +326,8 @@ def _check_cuda(x, masks, params_list, num_heads, head_gate=None,
                                 f"{sorted(p[name])}")
         hidden = p["fc1"]["weight_q" if int8 else "weight"].shape[0]
         if hidden % step:
-            raise ValueError(f"the GEMM kernel needs K % {step} == 0: "
-                             f"hidden={hidden}")
+            raise ValueError(f"the GEMM kernel needs K % {step} == 0 (rows "
+                             f"of 16-byte multiples): hidden={hidden}")
         if int8 and hidden > MAX_HIDDEN_INT8:
             raise ValueError(f"the row-quantise kernel takes hidden <= "
                              f"{MAX_HIDDEN_INT8}, got {hidden}")
@@ -347,6 +351,33 @@ def _check_cuda(x, masks, params_list, num_heads, head_gate=None,
 def _f32(t):
     """A mask or gate as the contiguous f32 the kernels read (or None)."""
     return None if t is None else t.float().contiguous()
+
+
+def _gemm(lib, a, w, n, k, epi, out, resid=None, rmask=None, variant=0):
+    """One bf16 product of the layer (``lt_gemm``): ``a`` (M, k), ``w``
+    {weight (n, k), bias (n,)}, epilogue ``epi`` (EPI_*), into ``out``."""
+    from laudnet_tpu_torch.ops._build import check
+
+    check(lib, lib.lt_gemm(
+        _ptr(a), _ptr(w["weight"]), _ptr(w["bias"]), a.numel() // k, n, k,
+        epi, _ptr(resid), _ptr(rmask), variant, _ptr(out),
+        torch.cuda.current_stream(a.device).cuda_stream), "gemm kernel")
+    return out
+
+
+def _gemm_s8(lib, a, w, n, k, epi, out, resid=None, rmask=None):
+    """One s8 product of the W8A8 layer (``lt_gemm_s8``): ``a`` = (codes
+    (M, k) int8, scales (M,) f32), ``w`` {weight_q (n, k), scale (n,),
+    bias (n,)}, into ``out``."""
+    from laudnet_tpu_torch.ops._build import check
+
+    q, qs = a
+    check(lib, lib.lt_gemm_s8(
+        _ptr(q), _ptr(qs), _ptr(w["weight_q"]), _ptr(w["scale"]),
+        _ptr(w["bias"]), q.numel() // k, n, k, epi, _ptr(resid), _ptr(rmask),
+        _ptr(out), torch.cuda.current_stream(q.device).cuda_stream),
+        "s8 gemm kernel")
+    return out
 
 
 def _layer_cuda(lib, x, kmask, rmask, p, num_heads, ln_eps, fast_math,
@@ -373,30 +404,26 @@ def _layer_cuda(lib, x, kmask, rmask, p, num_heads, ln_eps, fast_math,
             stream), "layernorm kernel")
         return out
 
-    def gemm(a, w, n, k, epi, resid=None, out=None):
-        check(lib, lib.lt_gemm(
-            _ptr(a), _ptr(w["weight"]), _ptr(w["bias"]), m, n, k, epi,
-            _ptr(resid), _ptr(rmask), gemm_var, _ptr(out), stream),
-            "gemm kernel")
-        return out
+    def gemm(a, w, n, k, epi, out, resid=None):
+        return _gemm(lib, a, w, n, k, epi, out, resid, rmask, gemm_var)
 
     if policy is None:
         h1 = ln(x, 0, p["ln1"])
     else:
         h1 = ln(x, 0, p["ln1"], policy["weight"], policy["bias"], kmask)
-    qkv = gemm(h1, p["qkv"], 3 * d, d, EPI_QKV,
-               out=torch.empty((m, 3 * d), **bf16))
+    qkv = gemm(h1, p["qkv"], 3 * d, d, EPI_QKV, torch.empty((m, 3 * d), **bf16))
     attn = torch.empty((m, d), **bf16)
     check(lib, lib.lt_attention(_ptr(qkv), _ptr(kmask), _ptr(head_gate),
                                 _ptr(attn), b, l, num_heads, DH ** -0.5,
                                 softmax, stream), "attention kernel")
-    x2 = gemm(attn, p["proj"], d, d, EPI_PROJ, resid=x,
-              out=torch.empty((m, d), dtype=torch.float32, device=x.device))
+    x2 = gemm(attn, p["proj"], d, d, EPI_PROJ,
+              torch.empty((m, d), dtype=torch.float32, device=x.device),
+              resid=x)
     h2 = ln(x2, 1, p["ln2"])
     u = gemm(h2, p["fc1"], hidden, d, EPI_FC1,
-             out=torch.empty((m, hidden), **bf16))
-    return gemm(u, p["fc2"], d, hidden, EPI_FC2, resid=x2,
-                out=torch.empty((b, l, d), **bf16))
+             torch.empty((m, hidden), **bf16))
+    return gemm(u, p["fc2"], d, hidden, EPI_FC2,
+                torch.empty((b, l, d), **bf16), resid=x2)
 
 
 def _layer_int8_cuda(lib, x, kmask, rmask, p, num_heads, ln_eps,
@@ -432,12 +459,7 @@ def _layer_int8_cuda(lib, x, kmask, rmask, p, num_heads, ln_eps,
         return q, qs
 
     def gemm(a, w, n, k, epi, out, resid=None):
-        q, qs = a
-        check(lib, lib.lt_gemm_s8(
-            _ptr(q), _ptr(qs), _ptr(w["weight_q"]), _ptr(w["scale"]),
-            _ptr(w["bias"]), m, n, k, epi, _ptr(resid), _ptr(rmask),
-            _ptr(out), stream), "s8 gemm kernel")
-        return out
+        return _gemm_s8(lib, a, w, n, k, epi, out, resid, rmask)
 
     qkv = gemm(ln_quant(x, 0, p["ln1"]), p["qkv"], 3 * d, d, EPI_QKV,
                torch.empty((m, 3 * d), dtype=torch.bfloat16, device=dev))
@@ -559,3 +581,100 @@ def fused_vit_segment(x, token_mask, params_list, *, num_heads: int,
 
 
 fused_vit_segment.launches = 0
+
+
+# --- one product alone -------------------------------------------------------
+
+GEMM_EPILOGUES = ("qkv", "proj", "fc1", "fc2")
+
+
+def block_gemm_reference(a, w, epilogue, *, resid=None, row_mask=None,
+                         variant=None, a_scale=None):
+    """Plain PyTorch version of `block_gemm`, on any device: the epilogue's
+    arithmetic as `_layer_plain` (bf16) and `fused_vit_block_int8_reference`
+    (s8) apply it, rounded at the same points as the kernel."""
+    v = variant or EXACT
+    mask = row_mask.float()[:, None] if row_mask is not None else None
+    if a_scale is None:
+        y = _mm(a, w["weight"], w["bias"])
+    else:
+        y = (int_matmul(a, w["weight_q"]) * a_scale.float()[:, None]
+             * w["scale"] + w["bias"].float())
+    if epilogue == "qkv":
+        return y.to(torch.bfloat16)
+    if epilogue == "fc1":
+        return gelu_exact(y) if a_scale is not None else (
+            _ACT[v.act](y).to(torch.bfloat16))
+    row = mask is not None and (a_scale is not None or v.row_mask)
+    if epilogue == "proj":
+        if a_scale is None and v.bf16_residual:
+            return (resid + (y * mask).to(resid.dtype)).float()
+        return resid.float() + (y * mask if row else y)
+    return (resid.float() + (y * mask if row else y)).to(torch.bfloat16)
+
+
+def block_gemm(a, w, epilogue, *, resid=None, row_mask=None, variant=None,
+               a_scale=None):
+    """One of a layer's four weight products with its epilogue, as B1, B2
+    and P1 (bf16) or B6 (s8) launch it: the GEMM core of
+    ``csrc/gemm_sm90.cuh``.
+
+    bf16: ``a`` (M, K) bf16, ``w`` {weight (N, K) bf16, bias (N,) bf16}.
+    s8 (``a_scale`` given): ``a`` (M, K) int8 codes, ``a_scale`` (M,) f32,
+    ``w`` {weight_q (N, K) int8, scale (N,) f32, bias (N,) bf16}.
+    ``epilogue``: 'qkv' -> bf16(acc + b); 'proj' -> f32 resid + (acc + b) *
+    row_mask (resid bf16 (M, N)); 'fc1' -> bf16(GELU(acc + b)) (s8: f32 erf
+    GELU); 'fc2' -> bf16(resid + (acc + b) * row_mask) (resid f32 (M, N)).
+    ``row_mask``: (M,) f32, for proj and fc2. ``variant`` (bf16 only, a
+    `BlockVariant`): its fc1 activation, row mask and proj residual. CPU
+    tensors run `block_gemm_reference`; CUDA tensors launch the kernel,
+    counted in ``block_gemm.launches``."""
+    if epilogue not in GEMM_EPILOGUES:
+        raise ValueError(f"epilogue must be one of {GEMM_EPILOGUES}")
+    if not _route(a):
+        return block_gemm_reference(a, w, epilogue, resid=resid,
+                                    row_mask=row_mask, variant=variant,
+                                    a_scale=a_scale)
+    from laudnet_tpu_torch.ops._build import library
+
+    s8 = a_scale is not None
+    weight = w["weight_q" if s8 else "weight"]
+    want = torch.int8 if s8 else torch.bfloat16
+    if a.dtype != want or weight.dtype != want:
+        raise TypeError(f"block_gemm takes {want} operands, got {a.dtype} "
+                        f"and {weight.dtype}")
+    if a.dim() != 2 or weight.dim() != 2 or a.shape[1] != weight.shape[1]:
+        raise ValueError(f"shapes {tuple(a.shape)} and {tuple(weight.shape)}")
+    m, k = a.shape
+    n = weight.shape[0]
+    if k % (16 if s8 else 8) or n % 8:
+        raise ValueError(f"the GEMM kernel needs rows of 16-byte multiples "
+                         f"and N % 8 == 0: K={k}, N={n}")
+    epi = GEMM_EPILOGUES.index(epilogue)
+    if epi in (EPI_PROJ, EPI_FC2):
+        rdt = torch.bfloat16 if epi == EPI_PROJ else torch.float32
+        if (resid is None or row_mask is None or resid.dtype != rdt
+                or tuple(resid.shape) != (m, n) or row_mask.numel() != m):
+            raise ValueError(f"{epilogue} takes resid {rdt} ({m}, {n}) and "
+                             f"row_mask ({m},)")
+    tensors = [a, weight, w["bias"], resid, row_mask, a_scale,
+               w.get("scale")]
+    for t in tensors:
+        if t is not None and (t.device != a.device or not t.is_contiguous()):
+            raise ValueError("block_gemm takes contiguous tensors on one "
+                             "device")
+    f32_out = epi == EPI_PROJ or (s8 and epi == EPI_FC1)
+    out = torch.empty((m, n), device=a.device,
+                      dtype=torch.float32 if f32_out else torch.bfloat16)
+    rmask = None if row_mask is None else _f32(row_mask)
+    lib = library()
+    if s8:
+        _gemm_s8(lib, (a, a_scale), w, n, k, epi, out, resid, rmask)
+    else:
+        _gemm(lib, a, w, n, k, epi, out, resid, rmask,
+              (variant or EXACT).codes()[1])
+    block_gemm.launches += 1
+    return out
+
+
+block_gemm.launches = 0

@@ -11,9 +11,10 @@ the card one after the other. So:
   bandwidth fractions the port's kernels were measured at
   (`sim/hardware.py::HopperSpec`);
 * a forward's time is the larger of its device time and its host time,
-  the host's cost of each launch (``host_launch`` for a kernel wrapper,
-  ``eager_host_launch`` for an operation of the eager model graph) plus
-  one ``host_sync`` per value read to the host: a form with many small
+  the host's cost of each launch (``host_launch`` for a launch of a block
+  wrapper, ``eager_host_launch`` for an operation of the eager model
+  graph), of each call of a block wrapper (``host_call``), plus one
+  ``host_sync`` per value read to the host: a form with many small
   launches is host-bound (the CNN flagship dispatches 1,062 operations a
   forward and the card idles half of it);
 * a report's ``compute_latency`` is the device time of all its ops (the
@@ -24,9 +25,10 @@ the card one after the other. So:
   CNN's quantising passes slow with its convolutions.
 
 ViT forms (`infer/fused_vit.py`): per layer B1's 7 launches (B6's 9), with
-the four products at the GEMM kernel's measured fraction of peak and their
-rows and columns padded to its 128-wide tile (`tiles.ceil_eff`: what makes
-128 tokens cheaper than 137), the attention kernel at its measured rate on
+the four products at the GEMM core's measured fraction of peak, their rows
+and columns padded to its 128 x 192 (or 224) tile (`tiles.ceil_eff`: what
+makes 128 tokens cheaper than 137) and their tiles spread in whole waves
+over the SMs, the attention kernel at its measured rate on
 64-query tiles and 16-key tiles, LayerNorm at its measured bandwidth; the
 gate and gather (`gate_and_select`: a stable sort, a gather); the patch
 convolution and the head. Forms outside the block engine run
@@ -143,11 +145,12 @@ class H100Predictor:
                ) -> SimulationReport:
         """A whole forward: the larger of the device's time and the host's
         (its launches and ``syncs`` reads of device values). A block-engine
-        kernel costs the host one ctypes launch (``host_launch``); any other
-        launch is an operation of the eager model graph
-        (``eager_host_launch``)."""
+        kernel costs the host one ctypes launch (``host_launch``) and each
+        call of a block wrapper its checks (``host_call``); any other launch
+        is an operation of the eager model graph (``eager_host_launch``)."""
         s = self.spec
-        host = sum(s.host_launch if c.get("op") in _WRAPPER_OPS
+        host = sum(s.host_call if c.get("op") == "call" else
+                   s.host_launch if c.get("op") in _WRAPPER_OPS
                    else s.eager_host_launch for c in rep.cfg)
         host += syncs * s.host_sync
         return SimulationReport(
@@ -159,10 +162,16 @@ class H100Predictor:
 
     def block_gemm(self, rows: int, k: int, n: int, int8: bool = False,
                    out_bytes: int = 2) -> SimulationReport:
-        """One product of B1 (B6 with ``int8``): rows and columns padded to
-        the 128 x 128 tile."""
+        """One product of B1 (B6 with ``int8``) on the GEMM core
+        (`csrc/gemm_sm90.cuh`): rows and columns padded to its 128 x BN
+        tile (BN 224 where 224 divides N and 192 does not, else 192), and
+        the tiles spread over the SMs in whole waves of persistent
+        blocks."""
         s = self.spec
-        eff = ceil_eff(rows, 128) * ceil_eff(n, 128)
+        bn = 224 if n % 224 == 0 and n % 192 else 192
+        tiles = -(-rows // 128) * -(-n // bn)
+        eff = (ceil_eff(rows, 128) * ceil_eff(n, bn)
+               * tiles / (-(-tiles // s.n_sms) * s.n_sms))
         rate = (s.peak_int8 * s.block_s8_gemm_frac if int8
                 else s.peak_bf16 * s.block_gemm_frac) * eff
         ab = 1 if int8 else _BF16
@@ -285,6 +294,7 @@ class H100Predictor:
                                    5, op="prologue")
         l = n + 1
         caps = list(token_capacity) if token_capacity is not None else None
+        run = 0  # layers in the current B2 segment
         for i in range(depth):
             gathered = False
             if mode == "token" and caps is not None:
@@ -293,9 +303,18 @@ class H100Predictor:
                     total = total + self.gate(l, dim) + self.select(l, k, dim)
                     l, gathered = k, True
             if fused_block:
-                # the token gate runs eagerly where a segment starts (B2
-                # fuses it into LN1 inside one)
-                if mode in ("token", "mask") and not gathered and i % 5 == 0:
+                # B2 segments (`build_fused_vit`) on the bf16 selection
+                # paths, one wrapper call each, up to 5 layers and cut at
+                # gathers, the token gate eager where one starts and fused
+                # into LN1 inside; a wrapper call every layer otherwise,
+                # and on the W8A8 engine (no segments) an eager gate too
+                segmented = mode in ("token", "mask") and not int8
+                start = not segmented or gathered or run == 5
+                run = 1 if start else run + 1
+                if start:
+                    total = total + SimulationReport(cfg=[dict(op="call")])
+                if mode in ("token", "mask") and not gathered and (
+                        not segmented or start):
                     total = total + self.gate(l, dim)
                 if mode == "head":
                     total = total + self.gate(1, dim, 2 * num_heads)

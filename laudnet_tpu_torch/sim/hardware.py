@@ -20,8 +20,8 @@ class HopperSpec:
     dense), ``mem_bandwidth`` (HBM3), ``l2_bytes``, ``smem_per_block``.
     Measured (rates in FLOP/s or bytes/s of the logical work):
 
-    * ``block_gemm_frac``: B1's bf16 GEMMs (mma.sync) as a fraction of
-      ``peak_bf16``; ``attention_rate``: B1's attention kernel;
+    * ``block_gemm_frac``: B1's bf16 GEMMs (the wgmma + TMA core,
+      ``csrc/gemm_sm90.cuh``) as a fraction of ``peak_bf16``; ``attention_rate``: B1's attention kernel;
       ``fused_attention_rate`` / ``fused_attention_rate_f32``: B4, the
       attention forward of ``attn_impl='fused'`` (`csrc/attention.cu`), in
       bf16 / f32, at DeiT-S L = 197, batch 128, with the head mask
@@ -29,8 +29,8 @@ class HopperSpec:
       ``block_ln_frac``: B1's LayerNorm kernel as a fraction of
       ``mem_bandwidth`` (`tools/probe_block_budget.py --stages`, P1);
     * ``block_s8_gemm_frac``: B6's s8 GEMMs at the block's K (same probe),
-      ``s8_gemm_frac``: P2's s8 GEMM at n = 4096, both of ``peak_int8``
-      (`tools/probe_int8.py`);
+      ``s8_gemm_frac``: P2's s8 GEMM at n = 4096 (the same core's s8
+      form), both of ``peak_int8`` (`tools/probe_int8.py`);
     * ``matmul_rate``: cuBLAS's bf16 product (``torch.matmul``, 8192^3);
       ``conv_rate``: cuDNN's bf16 convolutions, channels-last, over
       ResNet-50's 53 at batch 128; ``qconv_rate``: `QuantConv` over the
@@ -41,8 +41,9 @@ class HopperSpec:
     * ``eager_bw_frac``: an eager elementwise PyTorch pass, and
       ``index_bw_frac``: the gather and scatter-add of patches
       (`ops/sparse.py`), as fractions of ``mem_bandwidth``;
-      ``host_launch``: host seconds to issue one small PyTorch operation
-      (what a kernel wrapper's launch costs); ``eager_host_launch``: host
+      ``host_launch`` / ``host_call``: host seconds per kernel launch of
+      the block engine's wrappers (allocation, ctypes) and per call of one
+      (input checks, masks); ``eager_host_launch``: host
       seconds per operation of the eager model graph (the flagship's eval
       forward at batch 128, over the operations it dispatches);
       ``device_launch``: the device's time between two
@@ -65,6 +66,7 @@ class HopperSpec:
     eager_bw_frac: float
     index_bw_frac: float
     host_launch: float
+    host_call: float
     eager_host_launch: float
     device_launch: float
     host_sync: float
@@ -83,20 +85,31 @@ class HopperSpec:
 HOPPER_PRESETS = {
     # Measured on an NVIDIA H100 80GB HBM3 at a 700.00 W power limit
     # (nvidia-smi --query-gpu=name,power.limit --format=csv,noheader) by
-    # `python3 chip_smoke.py probes`: probe_block_budget --stages (B1's
-    # GEMMs 185.69 TFLOP/s, its attention 85.70, its LayerNorm 1,789.57
-    # GB/s; B6's s8 GEMMs 226.27 TOP/s), probe_int8 (P2 525.00 TOP/s at
-    # n = 4096; torch.matmul 806.51 TFLOP/s; over ResNet-50's convolutions
-    # at bs128: cuDNN bf16 270.52 TFLOP/s, QuantConv 11.84, the export's
-    # 13.73); and by two runs of `python -m
-    # laudnet_tpu_torch.tools.probe_host` in one call, their mean (issue
-    # 10.94 / 10.63 us; the eager graph 38.54 / 30.73 us of host an
-    # operation; device gap 1.995 / 1.996 us; host read 15.42 / 19.69 us;
-    # eager pass 0.8752 / 0.8772 and gather/scatter 0.1167 / 0.1188 of
-    # 3.35 TB/s).
+    # `python3 chip_smoke.py probes`. The three GEMM fields come from a run
+    # on the wgmma + TMA core (`csrc/gemm_sm90.cuh`): probe_block_budget
+    # --stages, B1's four bf16 products 321.19 TFLOP/s and B6's four s8
+    # products 301.69 TOP/s at DeiT-S bs128 (their FLOP over their summed
+    # device time); probe_int8, P2 1266.47 TOP/s at n = 4096
+    # (torch._int_mm 967.50 at 8192^3 in the same run). The other fields
+    # are an earlier run's (on the mma.sync GEMM it replaced): B1's
+    # attention 85.70 TFLOP/s and its LayerNorm 1,789.57 GB/s; torch.matmul
+    # 806.51 TFLOP/s; over ResNet-50's convolutions at bs128: cuDNN bf16
+    # 270.52 TFLOP/s, QuantConv 11.84, the export's 13.73 (the later run
+    # read 84.32, 1,761.64, 787.70, 270.69, 11.51, 12.87: inside the 5-25%
+    # spread between calls, so they stay); and two runs of `python -m
+    # laudnet_tpu_torch.tools.probe_host` in one call, their mean (the
+    # eager graph 38.54 / 30.73 us of host an operation; device gap 1.995 /
+    # 1.996 us; host read 15.42 / 19.69 us; eager pass 0.8752 / 0.8772 and
+    # gather/scatter 0.1167 / 0.1188 of 3.35 TB/s). ``host_launch`` and
+    # ``host_call`` come from two later runs of probe_host in one call:
+    # 23.59 / 29.63 us per launch of the block wrappers and 80.08 / 43.87
+    # us per call. Priced as one eager in-place add a launch (10.94 / 10.63
+    # us) and nothing a call, the W8A8 engine's forms (a wrapper call and
+    # an eager gate every layer) came out below the dense bf16 engine they
+    # measure up to 33% above once the GEMM core made the kernels faster.
     "h100": HopperSpec(
         "h100",
-        block_gemm_frac=185.69 / 989,
+        block_gemm_frac=321.19 / 989,
         attention_rate=85.70e12,
         # B4 at DeiT-S L = 197, batch 128, head mask: 4 * 128 * 6 * 197^2 *
         # 64 FLOP in 0.1228 ms (bf16) and 0.8384 ms (f32), both from one
@@ -105,15 +118,16 @@ HOPPER_PRESETS = {
         fused_attention_rate=7.630159872e9 / 0.1228e-3,
         fused_attention_rate_f32=7.630159872e9 / 0.8384e-3,
         block_ln_frac=1789.57 / 3350,
-        block_s8_gemm_frac=226.27 / 1979,
-        s8_gemm_frac=525.00 / 1979,
+        block_s8_gemm_frac=301.69 / 1979,
+        s8_gemm_frac=1266.47 / 1979,
         matmul_rate=806.51e12,
         conv_rate=270.52e12,
         qconv_rate=11.84e12,
         int_conv_rate=13.73e12,
         eager_bw_frac=(0.8752 + 0.8772) / 2,
         index_bw_frac=(0.1167 + 0.1188) / 2,
-        host_launch=(10.94 + 10.63) / 2 * 1e-6,
+        host_launch=(23.59 + 29.63) / 2 * 1e-6,
+        host_call=(80.08 + 43.87) / 2 * 1e-6,
         eager_host_launch=(38.54 + 30.73) / 2 * 1e-6,
         device_launch=(1.995 + 1.996) / 2 * 1e-6,
         host_sync=(15.42 + 19.69) / 2 * 1e-6,

@@ -207,8 +207,8 @@ def stages(device="cuda", layers=10):
                 continue
             ms = e.device_time_total / layers / 1e3
             key = e.key
-            if "gemm_kernel<" in key:
-                epi = int(key.split("gemm_kernel<")[1].split(",")[0])
+            if "BlockEpilogue<" in key:  # csrc/gemm_sm90.cuh's kernel
+                epi = int(key.split("BlockEpilogue<")[1].split(",")[0])
                 what, k, n = _GEMMS[epi]
                 flops = 2.0 * rows * k * n
                 gemm_flops += flops

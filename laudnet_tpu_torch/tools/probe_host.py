@@ -6,8 +6,12 @@ eager passes the port's CNN and gate paths are made of.
 Prints, from one run on the card (the `sim/hardware.py::HopperSpec` terms
 of the same names):
 
-* ``host_launch_us``: host microseconds to issue one small eager PyTorch
-  operation (a loop of in-place adds, no synchronisation, host clock);
+* ``host_launch_us`` and ``host_call_us``: host microseconds per kernel
+  launch of the block engine's wrappers (allocation, ctypes) and per call
+  of one (input checks, masks): a `fused_vit_block` call (7 launches) and
+  a five-layer `fused_vit_segment` call (35) at DeiT-S bs128 on the host
+  clock, issued while the card works through a spinning kernel queued
+  first (so the host never waits on it), the line through the two;
 * ``device_launch_us``: the card's microseconds per kernel in a chain of
   back-to-back tiny kernels (CUDA events), queued behind a spinning kernel
   (``torch.cuda._sleep``) so that the host is ahead: the gap a launch adds
@@ -21,6 +25,10 @@ of the same names):
   the count to the model's), median of 10 forwards;
 * ``host_sync_us``: one read of a device scalar to the host (``.item()``)
   after a tiny kernel;
+* ``tma_encode_us``: host microseconds to encode one TMA descriptor
+  (``cuTensorMapEncodeTiled`` through ``lt_tma_encode``, a DeiT-S bs128
+  activation): each launch of the GEMM core (``csrc/gemm_sm90.cuh``)
+  encodes two, 48 launches a DeiT-S forward;
 * ``eager_bw_frac``: an eager bf16 elementwise pass (``torch.relu`` of
   128 x 56 x 56 x 256, the flagship's stage-1 output) as a fraction of
   the card's 3.35 TB/s;
@@ -100,21 +108,59 @@ def _eager_host_launch_s(dev, batch=128, forwards=10):
     return times[len(times) // 2] / counted.n
 
 
+def _wrapper_host_s(dev, calls=10):
+    """Host seconds of the block engine's wrappers at DeiT-S bs128 (L =
+    197), issued behind ``torch.cuda._sleep`` so the host never waits on
+    the card: a call of `fused_vit_block` (one layer, 7 launches) and of
+    `fused_vit_segment` (five layers, 35 launches), fitted as a cost per
+    call (checks, masks) plus a cost per launch (allocation, ctypes).
+    Returns (per call, per launch)."""
+    from laudnet_tpu_torch.ops import vit_block
+
+    g = torch.Generator(dev).manual_seed(2)
+    b, l, d, hidden = 128, 197, 384, 1536
+
+    def w(*shape):
+        return (torch.randn(*shape, generator=g, device=dev) * 0.05).to(
+            torch.bfloat16)
+
+    p = {"ln1": {"weight": w(d), "bias": w(d)},
+         "ln2": {"weight": w(d), "bias": w(d)},
+         "qkv": {"weight": w(3 * d, d), "bias": w(3 * d)},
+         "proj": {"weight": w(d, d), "bias": w(d)},
+         "fc1": {"weight": w(hidden, d), "bias": w(hidden)},
+         "fc2": {"weight": w(d, hidden), "bias": w(d)}}
+    x = w(b, l, d)
+    ones = torch.ones(b, l, device=dev)
+    km, rm = ones.reshape(b, 1, l), ones.reshape(b, l, 1)
+
+    def host(call):
+        call()
+        torch.cuda.synchronize()
+        torch.cuda._sleep(200_000_000)  # ~120 ms: longer than the issue
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            call()
+        seconds = (time.perf_counter() - t0) / calls
+        torch.cuda.synchronize()
+        return seconds
+
+    one = host(lambda: vit_block.fused_vit_block(x, km, rm, p, num_heads=6,
+                                                 fast_math=True))
+    five = host(lambda: vit_block.fused_vit_segment(x, ones, [p] * 5,
+                                                    num_heads=6,
+                                                    fast_math=True))
+    per_launch = (five - one) / (35 - 7)
+    return one - 7 * per_launch, per_launch
+
+
 def run(device="cuda") -> dict:
     dev = torch.device(device)
     if dev.type != "cuda":
         raise ValueError("the probe measures a CUDA card")
     g = torch.Generator(dev).manual_seed(0)
     tiny = torch.zeros(16, device=dev)
-    n = 2000
-    for _ in range(100):
-        tiny.add_(1.0)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(n):
-        tiny.add_(1.0)
-    host = (time.perf_counter() - t0) / n
-    torch.cuda.synchronize()
+    call, host = _wrapper_host_s(dev)
     device_gap = _queued_gap_s(tiny, 500)
     syncs = []
     for _ in range(50):
@@ -123,6 +169,18 @@ def run(device="cuda") -> dict:
         tiny[0].item()
         syncs.append(time.perf_counter() - t0)
     syncs.sort()
+
+    from laudnet_tpu_torch.ops._build import check, library
+
+    lib = library()
+    act = torch.empty(128 * 197, 384, dtype=torch.bfloat16, device=dev)
+    reps = 10000
+    check(lib, lib.lt_tma_encode(act.data_ptr(), act.shape[0], 384, 100),
+          "descriptor encode")
+    t0 = time.perf_counter()
+    check(lib, lib.lt_tma_encode(act.data_ptr(), act.shape[0], 384, reps),
+          "descriptor encode")
+    encode = (time.perf_counter() - t0) / reps
 
     x = torch.randn(128, 56, 56, 256, device=dev, generator=g).to(
         torch.bfloat16)
@@ -147,9 +205,11 @@ def run(device="cuda") -> dict:
     halo = ((patch + 2) / patch) ** 2
     moved = (x1.numel() * (1 + halo) + ident.numel() * 2
              + patches.numel()) * 2
-    out = {"host_launch_us": host * 1e6, "device_launch_us": device_gap * 1e6,
+    out = {"host_launch_us": host * 1e6, "host_call_us": call * 1e6,
+           "device_launch_us": device_gap * 1e6,
            "eager_host_launch_us": _eager_host_launch_s(dev) * 1e6,
            "host_sync_us": syncs[len(syncs) // 2] * 1e6,
+           "tma_encode_us": encode * 1e6,
            "eager_bw_frac": eager,
            "index_bw_frac": moved / (gs_ms * 1e-3) / HBM}
     for key, v in out.items():

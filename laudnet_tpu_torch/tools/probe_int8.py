@@ -11,8 +11,9 @@ calls after warm-up (`tools/timing.py`):
 * ``bf16_matmul_tflops``: ``torch.matmul``, 8192^3 bf16 (cuBLAS);
 * ``s8_matmul_tops``: ``torch._int_mm``, 8192^3 s8 -> s32 (cuBLAS);
 * ``cuda_s8_matmul_tops``: the port's own s8 GEMM (kernel P2,
-  ``csrc/probe_int8.cu``), n = 4096: does a hand-written mma.sync s8
-  product reach the s8 rate at a large K (B6 runs the same tile at K =
+  ``csrc/probe_int8.cu``, the s8 form of the GEMM core that B6's products
+  run on, ``csrc/gemm_sm90.cuh``), n = 4096: does a hand-written wgmma s8
+  product reach the s8 rate at a large K (B6 runs the same core at K =
   384-1536)?
 * ``bf16_conv_tflops``: ``F.conv2d``, channels-last bf16, 128 x 14 x 14 x
   1024 -> 512, 3x3 (the JAX probe's shape, cuDNN);

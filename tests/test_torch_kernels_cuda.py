@@ -27,7 +27,12 @@ output, the second affine and the residual add), so the four ulps hold for
 it too, and the cells it does not select are ``relu(identity)`` bit for
 bit. P1's variants (B1's wrapper with a ``variant``) round where their plain
 versions round and hold the same four ulps.
-P2's integer sums are exact on both sides: equal bit for bit. The attention
+P2's integer sums are exact on both sides: equal bit for bit. The GEMM
+core (`csrc/gemm_sm90.cuh`) that B1, B2, B6 and P1 run their four products
+on is also held product by product (`vit_block.block_gemm`, each epilogue
+and variant, bf16 and s8) to the same four ulps; its s8 sums are exact,
+so its s8 epilogues differ from their plain versions only where an f32
+rounding does (the erf, a contracted multiply-add). The attention
 kernels in f32 sum in full f32 (FFMA) against f32 plain versions: 1e-4 of
 the largest entry (`_f32_tol`).
 """
@@ -455,8 +460,92 @@ def test_block_variant_kernel_matches_plain(card, mode):
     assert (out.float().cpu() - ref.float()).abs().max().item() <= _tol(ref)
 
 
+# The GEMM core, one product at a time: (M, K of qkv/proj/fc1, hidden) --
+# DeiT-S and T2T-ViT-19 widths at an M that is no multiple of the 128-row
+# tile, B2's L = 98 segments at bs128, a hidden of 208 (16-byte rows, no
+# multiple of 32), and DeiT-S at the serving M (bs128, L = 197).
+GEMM_GEOMS = {"deit_m1000": (1000, 384, 1536), "t2t_m1000": (1000, 448, 1344),
+              "deit_b2_l98": (128 * 98, 384, 1536),
+              "hidden208_m300": (300, 192, 208),
+              "deit_serving": (128 * 197, 384, 1536)}
+
+
+def _gemm_case(g, geom, epilogue, s8, dev):
+    """Inputs of one product: (a, w, kwargs) with the epilogue's residual
+    and row mask (a quarter of the rows masked)."""
+    m, d, hidden = GEMM_GEOMS[geom]
+    n, k = {"qkv": (3 * d, d), "proj": (d, d), "fc1": (hidden, d),
+            "fc2": (d, hidden)}[epilogue]
+    layer = {"weight": (torch.randn(n, k, generator=g) * k ** -0.5).to(
+        dev, torch.bfloat16),
+             "bias": (0.1 * torch.randn(n, generator=g)).to(dev, torch.bfloat16)}
+    a = torch.randn(m, k, generator=g).to(dev, torch.bfloat16)
+    kw = {}
+    if epilogue in ("proj", "fc2"):
+        kw["row_mask"] = (torch.rand(m, generator=g) > 0.25).float().to(dev)
+        kw["resid"] = torch.randn(m, n, generator=g).to(
+            dev, torch.bfloat16 if epilogue == "proj" else torch.float32)
+    if not s8:
+        return a, layer, kw
+    from laudnet_tpu_torch.ops.quant import quantize_rows, quantize_weight
+
+    wq, ws = quantize_weight(layer["weight"])
+    q, qs = quantize_rows(a)
+    kw["a_scale"] = qs.reshape(-1).contiguous()
+    return q, {"weight_q": wq, "scale": ws, "bias": layer["bias"]}, kw
+
+
+@pytest.mark.parametrize("s8", [False, True])
+@pytest.mark.parametrize("epilogue", vit_block.GEMM_EPILOGUES)
+@pytest.mark.parametrize("geom", sorted(GEMM_GEOMS))
+def test_gemm_core_matches_plain(card, geom, epilogue, s8):
+    g = torch.Generator().manual_seed(len(geom) + len(epilogue) + s8)
+    a, w, kw = _gemm_case(g, geom, epilogue, s8, card)
+    before = vit_block.block_gemm.launches
+    out = vit_block.block_gemm(a, w, epilogue, **kw)
+    ref = vit_block.block_gemm_reference(a, w, epilogue, **kw)
+    torch.cuda.synchronize()
+    assert vit_block.block_gemm.launches == before + 1
+    assert out.dtype == ref.dtype and out.shape == ref.shape
+    assert (out.float() - ref.float()).abs().max().item() <= _tol(ref)
+
+
+@pytest.mark.parametrize("variant", [
+    ("fc1", vit_block.BlockVariant(act="tanh")),
+    ("fc1", vit_block.BlockVariant(act="silu")),
+    ("fc1", vit_block.BlockVariant(act="none")),
+    ("proj", vit_block.BlockVariant(row_mask=False)),
+    ("proj", vit_block.BlockVariant(bf16_residual=True)),
+    ("fc2", vit_block.BlockVariant(row_mask=False))],
+    ids=lambda v: f"{v[0]}-{v[1].act}-{v[1].row_mask}-{v[1].bf16_residual}")
+@pytest.mark.parametrize("geom", ["deit_m1000", "t2t_m1000"])
+def test_gemm_core_body_variants_match_plain(card, geom, variant):
+    """P1's ablated epilogues (tile width 192 at every N, T2T's too)."""
+    epilogue, v = variant
+    g = torch.Generator().manual_seed(7)
+    a, w, kw = _gemm_case(g, geom, epilogue, False, card)
+    out = vit_block.block_gemm(a, w, epilogue, variant=v, **kw)
+    ref = vit_block.block_gemm_reference(a, w, epilogue, variant=v, **kw)
+    torch.cuda.synchronize()
+    assert (out.float() - ref.float()).abs().max().item() <= _tol(ref)
+
+
+def test_gemm_core_refuses_what_it_does_not_take(card):
+    g = torch.Generator().manual_seed(3)
+    a, w, kw = _gemm_case(g, "deit_m1000", "fc2", False, card)
+    with pytest.raises(ValueError):  # the residual missing
+        vit_block.block_gemm(a, w, "fc2")
+    with pytest.raises(TypeError):  # f32 operands
+        vit_block.block_gemm(a.float(), w, "qkv")
+    with pytest.raises(ValueError):  # K = 12: rows of 24 bytes
+        vit_block.block_gemm(a[:, :12].contiguous(),
+                             {"weight": w["weight"][:, :12].contiguous(),
+                              "bias": w["bias"]}, "qkv")
+
+
 @pytest.mark.parametrize("m,k,n", [(4096, 4096, 4096), (1000, 1040, 776),
-                                   (37, 16, 5)])
+                                   (37, 16, 5), (300, 208, 1000),
+                                   (129, 4112, 257)])
 def test_s8_gemm_kernel_bit_equal(card, m, k, n):
     g = torch.Generator().manual_seed(12)
     a = torch.randint(-127, 128, (m, k), generator=g, dtype=torch.int8)

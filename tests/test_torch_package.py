@@ -226,7 +226,8 @@ def test_new_wrappers_count_nothing_on_the_cpu():
 
 def test_int8_kernel_input_checks():
     """`_check_cuda` on W8A8 parameters: codes int8, scales f32, biases
-    bf16, and K a multiple of the s8 stage (64)."""
+    bf16, and K a multiple of 16 (rows of s8 codes in 16-byte multiples:
+    the GEMM core's TMA row stride)."""
     b, l, d, h, hidden = 2, 5, 128, 2, 256
 
     def qlin(o, i):
@@ -253,8 +254,8 @@ def test_int8_kernel_input_checks():
         bad = dict(p, proj=dict(p["proj"],
                                 weight_q=torch.zeros(d, d, dtype=torch.uint8)))
         vit_block._check_cuda(x, (mask,), [bad], h, int8=True)
-    with pytest.raises(ValueError, match="K % 64"):
-        bad = dict(p, fc1=qlin(96, d), fc2=qlin(d, 96))
+    with pytest.raises(ValueError, match="K % 16"):
+        bad = dict(p, fc1=qlin(104, d), fc2=qlin(d, 104))
         vit_block._check_cuda(x, (mask,), [bad], h, int8=True)
 
 

@@ -165,3 +165,105 @@ def test_binary_gate_matches_jax_with_ties():
     assert out[:, :2].eq(1.0).all()
     with pytest.raises(ValueError, match="noise source"):
         gating.binary_gate(torch.from_numpy(logits), 1.0, training=True)
+
+
+def _jax_int8_params(p):
+    """flax-layout params -> the JAX W8A8 block's ``qparams``."""
+    from laudnet_tpu.ops import quant as jq
+
+    q = {"ln1": p["ln1"], "ln2": p["ln2"]}
+    for name in ("qkv", "proj", "fc1", "fc2"):
+        kq, ks = jq.quantize_weight(jnp.asarray(p[name]["kernel"]))
+        q[name] = {"kernel_q": kq, "scale": ks,
+                   "bias": jnp.asarray(p[name]["bias"])}
+    return q
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_layer_matches_jax_at_widths_off_the_tile(int8):
+    """D = 192 (3 heads of 64) and hidden 576: no product width is a
+    multiple of the GEMM core's 128 x 192 / 224 tiles except 192 itself,
+    and L = 11 rows of 2 images. The port's plain layer (what the CUDA
+    layer is held to on the card) against the JAX kernel in interpret
+    mode, f32, atol 1e-4 (summation order; the W8A8 block also the erf
+    polynomial, `tests/test_torch_quant.py`). The JAX kernels take 3 heads
+    with a zero fake head padded in, as the JAX engine builds them
+    (`infer/fused_vit.py::_pad_fake_head`, bit-exact); the port takes 3
+    heads as they are."""
+    from laudnet_tpu.infer.fused_vit import _pad_fake_head
+
+    rng = np.random.default_rng(11 + int8)
+    b, l, d, heads, hidden = 2, 11, 192, 3, 576
+    p = _layer_np(rng, d, hidden)
+    x = rng.standard_normal((b, l, d)).astype(np.float32)
+    mask = _ragged_mask(rng, b, l)
+    jargs = (jnp.asarray(x), jnp.asarray(mask.reshape(b, 1, l)),
+             jnp.asarray(mask.reshape(b, l, 1)))
+    targs = (torch.from_numpy(x), torch.from_numpy(mask.reshape(b, 1, l)),
+             torch.from_numpy(mask.reshape(b, l, 1)))
+    jp = _pad_fake_head(_to_jax(p), d, heads)
+    if int8:
+        ref = jax.jit(lambda *a: jvb.fused_vit_block_int8(
+            *a, num_heads=heads, interpret=True))(*jargs, _jax_int8_params(jp))
+        out = vit_block.fused_vit_block_int8(
+            *targs, vit_block.quantize_block_params(_to_torch(p)),
+            num_heads=heads)
+    else:
+        ref = jax.jit(lambda *a: jvb.fused_vit_block(
+            *a, num_heads=heads, interpret=True))(*jargs, jp)
+        out = vit_block.fused_vit_block(*targs, _to_torch(p), num_heads=heads)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_block_gemm_reference_composes_the_layer(int8):
+    """The four products of `block_gemm_reference` (what each launch of
+    the GEMM core is held to on the card) chained with the layer's
+    LayerNorms, attention and row quantisers give the plain layer bit for
+    bit, bf16 and W8A8; on the CPU `block_gemm` runs that plain version."""
+    from laudnet_tpu_torch.ops.quant import quantize_rows
+
+    rng = np.random.default_rng(21 + int8)
+    b, l, d, heads, hidden = 2, 9, 128, 2, 256
+    p = _to_torch(_layer_np(rng, d, hidden))
+    p = {k: {n: t.to(torch.bfloat16) for n, t in v.items()}
+         for k, v in p.items()}
+    x = torch.from_numpy(rng.standard_normal((b, l, d)).astype(
+        np.float32)).to(torch.bfloat16)
+    mask = torch.from_numpy(_ragged_mask(rng, b, l))
+    m, rm = b * l, mask.reshape(-1)
+    neg = (1.0 - mask) * vit_block.NEG
+    gemm = vit_block.block_gemm
+    before = gemm.launches
+    ln = vit_block.layer_norm
+    xf = x.reshape(m, d)
+    if int8:
+        qp = vit_block.quantize_block_params(p)
+
+        def prod(a, name, epi, **kw):
+            q, s = quantize_rows(a)
+            return gemm(q, qp[name], epi, a_scale=s.reshape(-1), **kw)
+
+        h1 = ln(xf, p["ln1"]["weight"], p["ln1"]["bias"])
+        qkv = prod(h1, "qkv", "qkv").reshape(b, l, 3 * d)
+        att = vit_block.attention(qkv, neg, heads, 64 ** -0.5).reshape(m, d)
+        x2 = prod(att.float(), "proj", "proj", resid=xf, row_mask=rm)
+        u = prod(ln(x2, p["ln2"]["weight"], p["ln2"]["bias"]), "fc1", "fc1")
+        out = prod(u, "fc2", "fc2", resid=x2, row_mask=rm)
+        ref = vit_block.fused_vit_block_int8_reference(
+            x, mask.reshape(b, 1, l), mask.reshape(b, l, 1), qp,
+            num_heads=heads)
+    else:
+        h1 = ln(xf, p["ln1"]["weight"], p["ln1"]["bias"]).to(torch.bfloat16)
+        qkv = gemm(h1, p["qkv"], "qkv").reshape(b, l, 3 * d)
+        att = vit_block.attention(qkv, neg, heads, 64 ** -0.5).reshape(m, d)
+        x2 = gemm(att, p["proj"], "proj", resid=xf, row_mask=rm)
+        h2 = ln(x2.to(torch.bfloat16), p["ln2"]["weight"],
+                p["ln2"]["bias"]).to(torch.bfloat16)
+        u = gemm(h2, p["fc1"], "fc1")
+        out = gemm(u, p["fc2"], "fc2", resid=x2, row_mask=rm)
+        ref = vit_block.fused_vit_block_reference(
+            x, mask.reshape(b, 1, l), mask.reshape(b, l, 1), p,
+            num_heads=heads)
+    assert gemm.launches == before  # CPU: the plain version
+    assert torch.equal(out.reshape(b, l, d), ref)
