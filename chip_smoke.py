@@ -16,7 +16,12 @@ each raising on failure:
    B6, P1 and P2 run their products on, one product at a time at DeiT-S
    bs128 (qkv, proj, fc1, fc2 with their epilogues, bf16 and s8), each
    timed in turns with `F.linear` or `torch._int_mm` on the same operands,
-   with its TFLOP/s or TOP/s and its bound; B1 (`fused_vit_block`, also
+   with its TFLOP/s or TOP/s and its bound, and each of its row epilogues
+   (proj with LN2, bf16 and s8; fc2 with the next token gate and LN1; the
+   s8 fc1 with its row quantiser: the core's cluster form) timed in turns
+   with the two launches it replaces, with the clusters the card fits;
+   `lt_attention`'s two forwards in turns at L = 98-197 (the split it
+   routes by); B1 (`fused_vit_block`, also
    with a head gate), B2
    (`fused_vit_segment`), B6 (`fused_vit_block_int8`), B4
    (`fused_vit_attention`) and B5 (its backward) against their plain
@@ -24,7 +29,7 @@ each raising on failure:
    ragged L = 137, at L = 257 and 577, DeiT-S at 256^2 and 384^2, and in
    f32), with times, bounds and, for B4 and B5, the time of PyTorch's own
    fused attention call (forward, backward) timed in turns with them, its
-   backend named, and the forward B4 replaced timed beside it; B3
+   backend named; B3
    (`masked_bottleneck_tail`) at
    the shape of the JAX bench (B=16, 28x28, 1024 -> 2048, patch 7) and at
    the flagship's four stride-1 block shapes at batch 128, beside the dense
@@ -84,7 +89,8 @@ a changed kernel), ``python3 chip_smoke.py train`` runs phases 1-3 and 6,
 `tools/probe_host.py`), ``python3 chip_smoke.py engine`` runs phases 1-2
 and 10, and ``python3 chip_smoke.py profile`` prints, instead of
 the phases, where a forward's device time goes (`torch.profiler`, by
-kernel) for the dense DeiT-S, W8A8 DeiT-S and T2T-ViT-19 engines. None of
+kernel) for the dense and snapped DeiT-S, W8A8 DeiT-S and T2T-ViT-19
+engines. None of
 these prints a result line.
 """
 
@@ -199,6 +205,10 @@ SPARSE_F32_REL = 1e-3
 MASK_AGREE_MIN = 0.995
 CNN_TRAIN_STEPS = 4
 SRC = "laudnet_tpu_torch/csrc/vit_block.cu"
+# csrc/vit_block.cu::ATT_ROUTE_EXACT / ATT_ROUTE_DEFERRED: lt_attention's
+# exact (0) and deferred (1) forms run attention.cu's streaming forward
+# from this many keys on
+ROUTE_L = {0: 129, 1: 145}
 SRC_S8 = "laudnet_tpu_torch/csrc/probe_int8.cu"
 SRC_TAIL = "laudnet_tpu_torch/csrc/masked_block.cu"
 SRC_ATT = "laudnet_tpu_torch/csrc/attention.cu"
@@ -672,12 +682,25 @@ def product_bound(name, m, d, hidden, s8):
     type; bytes over the memory rate: A and W read once (s8: with their f32
     scales), the bias, the output written once (qkv and fc2 bf16, proj f32,
     fc1 bf16 or, s8, f32), the residual (proj bf16 x, fc2 f32 x2) and the
-    row mask read once."""
+    row mask read once. The row epilogues (`vit_block.ROW_EPILOGUES`): the
+    LayerNorm's weights read and its output written (proj_ln: h2 bf16 or,
+    s8, codes and f32 scales; fc2_ln: h1 bf16, the gate's weights, the mask
+    written), fc1_q's codes and scales in place of its f32 output."""
+    base = vit_block.ROW_PRODUCT.get(name, name)
     n, k = {"qkv": (3 * d, d), "proj": (d, d), "fc1": (hidden, d),
-            "fc2": (d, hidden)}[name]
+            "fc2": (d, hidden)}[base]
     size = 1 if s8 else 2
-    out = 4 if name == "proj" or (s8 and name == "fc1") else 2
+    out = 4 if base == "proj" or (s8 and base == "fc1") else 2
+    if name == "fc1_q":
+        out = 1
     moved = (m * k + n * k) * size + n * 2 + m * n * out
+    if name in ("proj_ln", "fc2_ln"):
+        moved += 2 * n * 2 + m * n * (1 if s8 else 2)
+    if name == "fc2_ln":
+        moved += 2 * n * 2 + m * 4
+    if name in ("fc1_q", "proj_ln") and s8:
+        moved += m * 4
+    name = base
     if s8:
         moved += (m + n) * 4
     if name in ("proj", "fc2"):
@@ -760,6 +783,144 @@ def phase_products(dev, card):
               f"{sum(r['ms'] for r in mine):.4f} ms, library "
               f"{sum(r['library_ms'] for r in mine):.4f} ms, bound "
               f"{sum(r['bound_ms'] for r in mine):.4f} ms [{card}]")
+    return rows + phase_row_products(dev, card, g)
+
+
+ROW_PRODUCTS = (("proj_ln", False), ("proj_ln", True), ("fc2_ln", False),
+                ("fc1_q", True))
+
+
+def close_codes(tag, q, qs, ref_q, ref_qs):
+    """s8 codes against the plain version's: the f32 row they quantise
+    differs by a summation order (LN2's statistics) or by libdevice's erf
+    against PyTorch's, so scales within 1e-5 relative, codes within 1 and
+    at most one in a thousand moved. Returns the share moved."""
+    rel = ((qs - ref_qs).abs() / ref_qs.abs()).max().item()
+    moved = (q.int() - ref_q.int()).abs()
+    share = moved.float().mean().item()
+    if not (rel <= 1e-5 and moved.max().item() <= 1 and share <= 1e-3):
+        raise AssertionError(f"{tag}: codes disagree with plain (scales "
+                             f"{rel:.3g} relative, {share:.3g} of the codes "
+                             f"moved, by up to {moved.max().item()})")
+    return share
+
+
+def phase_row_products(dev, card, g):
+    """The row epilogues (the GEMM core's cluster form) at DeiT-S bs128:
+    proj with LN2 (bf16, s8 with LN2's quantiser), fc2 with the next
+    layer's token gate and LN1, the s8 fc1 with its row quantiser, each
+    against its plain version and timed in turns with the two launches it
+    replaces (the product, then the row pass: `lt_layernorm`,
+    `lt_layernorm_quant`, `lt_rowquant`). Returns the rows."""
+    from laudnet_tpu_torch.ops.quant import quantize_rows, quantize_weight
+
+    m, d, hidden = B * L_FULL, DEIT["d"], DEIT["hidden"]
+    lib = _build.library()
+    stream = torch.cuda.current_stream().cuda_stream
+    rows = []
+    for name, s8 in ROW_PRODUCTS:
+        base = vit_block.ROW_PRODUCT[name]
+        epi = PRODUCTS.index(base)
+        n, k = {"proj": (d, d), "fc2": (d, hidden), "fc1": (hidden, d)}[base]
+        w = {"weight": (torch.randn(n, k, generator=g) * k ** -0.5).to(
+            dev, torch.bfloat16),
+             "bias": (0.1 * torch.randn(n, generator=g)).to(dev,
+                                                            torch.bfloat16)}
+        a = torch.randn(m, k, generator=g).to(dev, torch.bfloat16)
+        kw = {}
+        if base in ("proj", "fc2"):
+            kw["row_mask"] = torch.ones(m, device=dev)
+            kw["resid"] = torch.randn(m, n, generator=g).to(
+                dev, torch.bfloat16 if base == "proj" else torch.float32)
+            kw["ln"] = {"weight": (1 + 0.05 * torch.randn(n, generator=g)).to(
+                dev, torch.bfloat16), "bias": (0.05 * torch.randn(
+                    n, generator=g)).to(dev, torch.bfloat16)}
+        if name == "fc2_ln":
+            pw = torch.zeros(2, n)
+            pw[0, 0], pw[1, 0] = 1.0, -1.0
+            kw["policy"] = {"weight": pw.to(dev, torch.bfloat16),
+                            "bias": torch.zeros(2, dtype=torch.bfloat16,
+                                                device=dev)}
+            kw["seq_len"] = L_FULL
+        if s8:
+            wq, ws = quantize_weight(w["weight"])
+            a, qs = quantize_rows(a)
+            w = {"weight_q": wq, "scale": ws, "bias": w["bias"]}
+            kw["a_scale"] = qs.reshape(-1).contiguous()
+        out = vit_block.block_gemm(a, w, name, **kw)
+        ref = vit_block.block_gemm_reference(a, w, name, **kw)
+        torch.cuda.synchronize()
+        tag = f"GEMM core {name} {'s8' if s8 else 'bf16'} M={m} N={n} K={k}"
+        if name == "fc1_q":
+            err = close_codes(tag, *out, *ref)
+        else:
+            err = (out[0].float() - ref[0].float()).abs().max().item()
+            if not err <= ulp_tol(ref[0]):
+                raise AssertionError(f"{tag}: disagrees with plain: {err}")
+            if s8:
+                close_codes(tag, *out[1:], *ref[1:])
+            elif not ((out[1].float() - ref[1].float()).abs().max().item()
+                      <= ulp_tol(ref[1])):
+                raise AssertionError(f"{tag}: LayerNorm disagrees with plain")
+            if name == "fc2_ln" and not torch.equal(out[2], ref[2]):
+                raise AssertionError(f"{tag}: the token mask differs")
+        # timed through the bare launches into kept outputs
+        res, rm, ln = kw.get("resid"), kw.get("row_mask"), kw.get("ln")
+        y = torch.empty(m, n, device=dev, dtype=torch.float32 if (
+            base == "proj" or s8 and base == "fc1") else torch.bfloat16)
+        h = torch.empty(m, n, device=dev, dtype=torch.bfloat16)
+        codes = (torch.empty(m, n, device=dev, dtype=torch.int8),
+                 torch.empty(m, device=dev))
+        mask = torch.ones(m, device=dev)
+        if s8:
+            qa = (a, kw["a_scale"])
+            fused = lambda: vit_block._gemm_s8_rows(
+                lib, qa, w, n, k, epi, codes, y if base == "proj" else None,
+                res, rm, ln)
+
+            def unfused():
+                vit_block._gemm_s8(lib, qa, w, n, k, epi, y, res, rm)
+                if base == "proj":
+                    _build.check(lib, lib.lt_layernorm_quant(
+                        y.data_ptr(), 1, codes[0].data_ptr(),
+                        codes[1].data_ptr(), ln["weight"].data_ptr(),
+                        ln["bias"].data_ptr(), m, n, 1e-6, stream), "lnq")
+                else:
+                    _build.check(lib, lib.lt_rowquant(
+                        y.data_ptr(), 1, codes[0].data_ptr(),
+                        codes[1].data_ptr(), m, n, stream), "rowquant")
+        else:
+            tp = kw.get("policy") or {}
+            fused = lambda: vit_block._gemm_rows(
+                lib, a, w, n, k, epi, y, h, res,
+                rm if base == "proj" else mask, ln, 1e-6, 0, 0,
+                kw.get("policy"), mask, L_FULL)
+
+            def unfused():
+                vit_block._gemm(lib, a, w, n, k, epi, y, res,
+                                rm if base == "proj" else mask)
+                _build.check(lib, lib.lt_layernorm(
+                    y.data_ptr(), int(base == "proj"), h.data_ptr(),
+                    ln["weight"].data_ptr(), ln["bias"].data_ptr(), m, n,
+                    1e-6, 0, tp["weight"].data_ptr() if tp else None,
+                    tp["bias"].data_ptr() if tp else None,
+                    mask.data_ptr() if tp else None, L_FULL, stream),
+                    "layernorm")
+        ms, old_ms = in_turns(fused, unfused)
+        bound, by = product_bound(name, m, d, hidden, s8)
+        print(f"{tag}: max_abs_err {err:.6g}; fused {ms:.4f} ms, the "
+              f"product and its row pass as two launches {old_ms:.4f} ms "
+              f"(in turns), bound {bound:.4f} ms by {by} [{card}]")
+        rows.append(dict(product=name, s8=s8, ms=ms, unfused_ms=old_ms,
+                         bound_ms=bound, bound_by=by, err=err))
+    # the persistent grids (csrc/vit_block.cu::lt_gemm_clusters' kinds)
+    for label, kind, n, cn in (
+            ("proj_ln / fc2_ln bf16", 0, d, 2), ("proj_ln s8", 2, d, 2),
+            ("fc1_q s8", 3, hidden, 8), ("proj_ln bf16 T2T", 0, T2T["d"], 2),
+            ("fc1_q s8 T2T", 3, T2T["hidden"], 7)):
+        print(f"GEMM core {label} N={n}: cudaOccupancyMaxActiveClusters "
+              f"gives {lib.lt_gemm_clusters(kind, n)} clusters of {cn} "
+              f"[{card}]")
     return rows
 
 
@@ -913,28 +1074,58 @@ def phase_kernels(dev, card):
                                          "zero dqkv and a non-zero dgate")
         del qkv, cot, lib_out, qg, kg, vg
 
-    # --- the forward that B4 replaced (B1's attention_kernel, which
-    # lt_attention still launches at L <= 256), timed in turns with the
-    # new one at DeiT-S L = 197 with the head mask -------------------------
+    # --- the layer's attention launch (`lt_attention`): attention.cu's
+    # streaming forward (attn_fwd_bf16, B4's kernel) against vit_block.cu's
+    # register-resident attention_kernel, in turns, at B2's L = 98, the
+    # snapped 128, the ragged 137 and B1's 197, exact and deferred, with
+    # and without the head gate; both held to the plain attention. The
+    # split lt_attention routes by (ATT_ROUTE_EXACT, ATT_ROUTE_DEFERRED) is
+    # read from these lines.
     d, heads = DEIT["d"], DEIT["heads"]
-    qkv = torch.randn(B, L_FULL, 3 * d, generator=g).to(dev, torch.bfloat16)
-    mask = key_mask(g, L_FULL, dev, False)
-    gate = head_gate(g, heads, dev)
-    old_out = torch.empty(B, L_FULL, d, device=dev, dtype=torch.bfloat16)
     lib = _build.library()
+    stream_ptr = torch.cuda.current_stream().cuda_stream
+    for l in (98, 128, 137, 197):
+        qkv = torch.randn(B, l, 3 * d, generator=g).to(dev, torch.bfloat16)
+        mask = key_mask(g, l, dev, l == 137)
+        neg = (1.0 - mask) * vit_block.NEG
+        for gated in (False, True):
+            gate = head_gate(g, heads, dev) if gated else None
+            gptr = None if gate is None else gate.data_ptr()
+            for deferred in (0, 1):
+                outs = [torch.empty(B, l, d, device=dev, dtype=torch.bfloat16)
+                        for _ in range(2)]
 
-    def old_b4():
-        _build.check(lib, lib.lt_attention(
-            qkv.data_ptr(), mask.data_ptr(), gate.data_ptr(),
-            old_out.data_ptr(), B, L_FULL, heads, 0.125, 0,
-            torch.cuda.current_stream().cuda_stream), "old attention kernel")
+                def streaming():
+                    _build.check(lib, lib.lt_attn_fwd(
+                        qkv.data_ptr(), mask.data_ptr(), gptr,
+                        outs[0].data_ptr(), None, B, l, heads, 0.125,
+                        deferred, 0, stream_ptr), "attn_fwd_bf16")
 
-    new_ms, old_ms = in_turns(
-        lambda: vit_attention.fused_vit_attention(qkv, mask, gate, heads,
-                                                  0.125), old_b4)
-    print(f"B4 at D=384 L=197 head mask, in turns: the new forward "
-          f"{new_ms:.4f} ms, the forward it replaced (attention_kernel) "
-          f"{old_ms:.4f} ms [{card}]")
+                def resident():
+                    _build.check(lib, lib.lt_attention_resident(
+                        qkv.data_ptr(), mask.data_ptr(), gptr,
+                        outs[1].data_ptr(), B, l, heads, 0.125, deferred,
+                        stream_ptr), "attention_kernel")
+
+                streaming(), resident()
+                ref = vit_block.attention(qkv, neg, heads, 0.125,
+                                          fast=bool(deferred), head_gate=gate)
+                torch.cuda.synchronize()
+                tag = (f"lt_attention's two kernels D=384 L={l}"
+                       f"{' ragged' if l == 137 else ''}"
+                       f"{' head gate' if gated else ''} "
+                       f"{'deferred' if deferred else 'exact'}")
+                errs = [(o.float() - ref.float()).abs().max().item()
+                        for o in outs]
+                if not max(errs) <= ulp_tol(ref):
+                    raise AssertionError(f"{tag}: disagrees with plain "
+                                         f"{errs}")
+                s_ms, r_ms = in_turns(streaming, resident)
+                print(f"{tag}: attn_fwd_bf16 {s_ms:.4f} ms, attention_kernel "
+                      f"{r_ms:.4f} ms (in turns; max_abs_err {errs[0]:.6g}, "
+                      f"{errs[1]:.6g}); lt_attention routes to "
+                      f"{'attn_fwd_bf16' if l >= ROUTE_L[deferred] else 'attention_kernel'}"
+                      f" [{card}]")
     return results
 
 
@@ -1451,6 +1642,8 @@ def phase_profile(dev, card, forwards=5, rows=22):
     snapped = dict(token_capacity=T2T_CAPS, snap_capacities=True)
     with torch.no_grad():
         runs = (("deit_dense", build_fused_vit(deit)),
+                ("deit_snapped", build_fused_vit(
+                    deit, token_capacity=NOMINAL, snap_capacities=True)),
                 ("deit_int8_dense", build_fused_vit(deit, int8=True)),
                 ("t2t_dense", build_fused_vit(t2t)),
                 ("t2t_snapped", build_fused_vit(t2t, **snapped)),
@@ -1888,18 +2081,30 @@ def phase_probes(card, full=False):
 # measured: rates spread 5-25% between calls (PERF.md), so nearer pairs are
 # printed, not judged.
 ORDER_GAP = 0.25
+BATCH1_ROUNDS = 21
+CNN_ROUNDS = 5
 
 
-def interleaved_ms(fns, rounds=3, reps=3):
+def interleaved_ms(fns, rounds=3, reps=3, label=None, card=""):
     """Median ms of each of ``fns`` (name -> callable), timed round by
     round, every callable once a round (`time_ms`): a slow spell of the
     shared host then falls on all of them alike instead of on whichever
-    form was being timed when it came."""
+    form was being timed when it came. With ``label``, prints each form's
+    spread across the rounds: (largest - smallest round) / median, and the
+    spread of the median itself, estimated as that over sqrt(rounds)."""
     times = {name: [] for name in fns}
     for _ in range(rounds):
         for name, fn in fns.items():
             times[name].append(time_ms(fn, reps=reps, warmup=1))
-    return {name: statistics.median(t) for name, t in times.items()}
+    medians = {name: statistics.median(t) for name, t in times.items()}
+    if label is not None:
+        for name, t in times.items():
+            spread = (max(t) - min(t)) / medians[name]
+            print(f"{label} {name}: {rounds} rounds of {reps} calls, median "
+                  f"{medians[name]:.4f} ms, spread across rounds "
+                  f"{spread:.4f}, of the median {spread / rounds ** 0.5:.4f} "
+                  f"(rounds {', '.join(f'{v:.3f}' for v in t)}) [{card}]")
+    return medians
 
 
 def predicted_vs_measured(name, plan, measured, card):
@@ -2112,10 +2317,14 @@ def phase_engine(dev, card):
     if not rel_sparse <= REL_ERR_MAX:
         raise AssertionError("flagship spatial-capacity disagrees with "
                              "dense-masked")
+    # the masked CNN forms are host-bound like the batch-1 ones (dense-
+    # masked against spatial capacity read 0.74-1.21x apart across calls,
+    # PERF.md section 7): more rounds than the ViT forms
     with torch.no_grad():
         measured = interleaved_ms({
             m: (lambda f=f: f(images)) if m == "dense" else
-            (lambda f=f: f(images, 0.1)) for m, f in forms.items()})
+            (lambda f=f: f(images, 0.1)) for m, f in forms.items()},
+            rounds=CNN_ROUNDS, label="flagship", card=card)
     reversed_pairs += predicted_vs_measured("flagship", plan, measured, card)
     dense_ms = measured["dense"]  # the ungated ResNet-50 of every CNN plan
     del fl, forms, engine
@@ -2165,7 +2374,8 @@ def phase_engine(dev, card):
             if not rel <= bound:
                 raise AssertionError(f"channel {mode} is further from "
                                      "dense-masked than its bound")
-        measured = interleaved_ms(forms)
+        measured = interleaved_ms(forms, rounds=CNN_ROUNDS, label="channel",
+                                  card=card)
     measured["dense"] = dense_ms
     reversed_pairs += predicted_vs_measured("channel", plan, measured, card)
     del ch, forms, engine, export
@@ -2193,13 +2403,18 @@ def phase_engine(dev, card):
         raise AssertionError("layer-skip ResNet disagrees with the model")
     dense1 = resnet50(device=dev, generator=torch.Generator(dev).manual_seed(
         2)).eval()
+    # batch 1 is host-bound: its forms' times spread by up to a third from
+    # round to round (PERF.md section 7), so they are timed over
+    # BATCH1_ROUNDS rounds, which brings the spread of each median well
+    # below ORDER_GAP
     with torch.no_grad():
         measured = interleaved_ms({
             "layerskip": lambda: ls(x1),
             "dense-masked": lambda: lr(x1, 0.1),
             "dense-masked-int8": lambda q=configured(lr, conv_impl="int8"):
             q(x1, 0.1),
-            "dense": lambda: dense1(x1)}, reps=5)
+            "dense": lambda: dense1(x1)}, rounds=BATCH1_ROUNDS, reps=5,
+            label="layer ResNet-50 batch 1", card=card)
     reversed_pairs += predicted_vs_measured("layer ResNet-50 batch 1", plan,
                                             measured, card)
     del lr, engine, dense1
@@ -2238,7 +2453,9 @@ def phase_engine(dev, card):
                              "differ from the model's eval")
     with torch.no_grad():
         ms = interleaved_ms({"skip": lambda: lsv(x1),
-                             "masked": lambda: fused(x1, 0.1)}, reps=5)
+                             "masked": lambda: fused(x1, 0.1)},
+                            rounds=BATCH1_ROUNDS, reps=5,
+                            label="layer-skip DeiT-S batch 1", card=card)
     ms_skip, ms_masked = ms["skip"], ms["masked"]
     print(f"layer-skip DeiT-S batch 1: {ms_skip:.4f} ms, the dense-masked "
           f"graph {ms_masked:.4f} ms [{card}]")

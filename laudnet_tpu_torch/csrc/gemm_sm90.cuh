@@ -56,6 +56,35 @@
 //     rows at a time and writes it back as full lines, 16 bytes a thread
 //     (the fragment's own pairs would be 8 rows x 16 bytes a store, a
 //     quarter of each line).
+//   - The cluster form (template parameter CN > 1, N == CN * BN): a
+//     thread-block cluster of CN blocks on neighbouring SMs holds whole
+//     rows, so an epilogue can run a row pass that needs the whole row
+//     (LayerNorm, a token gate, a row quantiser: csrc/vit_block.cu's
+//     RowEpilogue) without another trip through device memory. The
+//     persistent grid is clusters: each walks 128-row blocks, block r of a
+//     cluster takes N-tile r. Block 0 loads each K-block of A once and
+//     multicasts it (TMA .multicast::cluster) to all CN blocks, so A's
+//     reads from L2 drop by CN; each block loads its own W tile. A row's
+//     statistics cross the blocks through distributed shared memory: each
+//     consumer warp writes its rows' partial sums into the exchange
+//     buffer of the warp that holds the same rows in every block of the
+//     cluster with st.async, whose bytes complete on that warp's mbarrier
+//     (no fence: a release at cluster scope would wait for the tile's
+//     global stores), and adds the CN partials in rank order, so every
+//     block holds the same totals. The grid is min(row blocks,
+//     cudaOccupancyMaxActiveClusters): the card places a cluster inside
+//     one GPC. Waves at DeiT-S bs128 (197 row blocks): the card fits 66
+//     clusters of 2 for proj and fc2 (2.98 waves; B2's L = 98 segments: 98
+//     row blocks, 1.48), but only 15 of 8 (and 15 of 7) for the s8 fc1:
+//     13.1 waves on 120 SMs against 11.94 on 132 for the product alone
+//     (17 of 6 at BN = 256, slower still: vit_block_rows.cu).
+//   - No wait can hang the card: every mbarrier wait traps after 4 s, and
+//     the one cluster barrier (after the barriers' initialisation, before
+//     any block touches another's) is reached by every thread at once. A
+//     block leaves only when nothing of the cluster can still reach its
+//     shared memory: each block waits for every exchange it receives, and
+//     block 0's producer, whose empty barriers the other blocks' consumers
+//     arrive on, waits for the last release of every stage before it ends.
 //
 // Shared memory per stage: (128 + BN) x 128 bytes; with the staging buffers
 // (36-40 KB) STAGES = 4 at BN = 192 (160 KB) and 224 (176 KB), 3 at 256
@@ -103,15 +132,24 @@ __device__ __forceinline__ void set_float(int& slot, float v) { slot = __float_a
 // BN rows of one 128-byte K-block each), then each consumer warp's two
 // staging buffers of 16 output rows x one 128-byte line (padded so that
 // neither the fragment-layout writes nor the row reads conflict on banks),
-// then the 2 * STAGES barriers, and room to align the base to an atom.
-template <int BN, int OUT_BYTES>
+// then the row-exchange buffers of a cluster epilogue (XBYTES, 0 without
+// one), then the 2 * STAGES + 16 barriers, and room to align the base to
+// an atom.
+// A staged row: 128 bytes and a pad of 8 bytes a value (16 for s8 codes:
+// the rows are read back 16 bytes at a time, so the pitch is a multiple of
+// 16).
+__host__ __device__ constexpr int gemm_pitch(int out_bytes) {
+    return 128 + (out_bytes < 2 ? 16 : 8 * out_bytes);
+}
+
+template <int BN, int OUT_BYTES, int XBYTES = 0>
 struct GemmShape {
     static constexpr int A_BYTES = GEMM_BM * SW128_ROW, STAGE = (GEMM_BM + BN) * SW128_ROW;
-    static constexpr int PITCH = 128 + 8 * OUT_BYTES, BUF = 16 * PITCH;
+    static constexpr int PITCH = gemm_pitch(OUT_BYTES), BUF = 16 * PITCH;
     static constexpr int STAGING = 8 * 2 * BUF;
-    static constexpr int FIT = (GEMM_SMEM_LIMIT - SW128_ATOM - 80 - STAGING) / STAGE;
+    static constexpr int FIT = (GEMM_SMEM_LIMIT - SW128_ATOM - 208 - STAGING - XBYTES) / STAGE;
     static constexpr int STAGES = FIT < 5 ? FIT : 5;
-    static constexpr int SMEM = STAGES * STAGE + STAGING + 2 * STAGES * 8 + SW128_ATOM;
+    static constexpr int SMEM = STAGES * STAGE + STAGING + XBYTES + (2 * STAGES + 16) * 8 + SW128_ATOM;
     static_assert(STAGES >= 2 && SMEM <= GEMM_SMEM_LIMIT, "tile too wide for the ring");
 };
 
@@ -126,30 +164,139 @@ struct GemmShape {
 // v1 (as_float / set_float carry an f32 result in an s32 slot). stage
 // writes the pair's output values to shared memory, store16 sends 16
 // staged bytes (16 / OUT_BYTES columns, gn < N) to row gm of the output.
-template <typename T, int BN, class Epi>
+// OUT_BYTES = 0: no output at this point.
+//
+// A row epilogue (ROUNDS > 0 or OUT2_BYTES > 0) goes on, after the first
+// output is stored, with statistics of whole rows and a second output:
+//   ROUNDS, NSTAT                                   rounds, values a round
+//   bool is_max(int round)                          max (else sum) round
+//   void stat(int round, const Row&, int gn, Acc v0, Acc v1, float (&part)[NSTAT])
+//   void fold(int round, Row&, const float (&total)[NSTAT])
+//   bool transforms(int round), transform(const Row&, int gn, Acc&, Acc&)
+//                                                   rewrite the pairs after
+//                                                   that round's fold
+//   OUT2_BYTES, stage2(void*, const Row&, int gn, Acc, Acc), store2_16(gm, gn, uint4)
+//   void row_done(const Row&, int gm)               once per row, rank 0
+// Round r: stat adds a pair's terms to the thread's partials (or takes
+// their max), the four lanes of a quad combine theirs, then the CN blocks
+// of the cluster exchange theirs through distributed shared memory, and
+// every block combines the CN partials in rank order, so all of them hold
+// the same totals; fold turns them into row state (a mean, a scale). A
+// row's BN columns of a block all sit in one warp (wgmma's fragment), so
+// no exchange between the warps of a block is needed. N must be CN * BN.
+template <class Epi, class = void>
+struct RowPass {
+    static constexpr int ROUNDS = 0, NSTAT = 1, OUT2_BYTES = 0;
+};
+template <class Epi>
+struct RowPass<Epi, decltype(void(Epi::ROUNDS))> {
+    static constexpr int ROUNDS = Epi::ROUNDS, NSTAT = Epi::NSTAT, OUT2_BYTES = Epi::OUT2_BYTES;
+};
+
+template <int A, int B>
+__host__ __device__ constexpr int cmax() { return A > B ? A : B; }
+
+// The exchange buffers of a cluster of CN: two slots (a round's and the
+// next's) of CN senders x 128 rows x NSTAT f32.
+template <class Epi, int CN>
+__host__ __device__ constexpr int xbytes() {
+    return RowPass<Epi>::ROUNDS > 0 && CN > 1 ? 2 * CN * GEMM_BM * RowPass<Epi>::NSTAT * 4 : 0;
+}
+
+// One of a warp's outputs (WHICH 1: stage / store16, 2: stage2 /
+// store2_16) through its two staging buffers: one 128-byte line of each
+// of the warp's 16 rows per pass, written back as full-line 16-byte
+// stores.
+template <int WHICH, int BN, int OB, int PITCH, int BUF, class Epi, typename Acc, class Row>
+__device__ __forceinline__ void store_rows(const Epi& epi, const Acc (&d)[BN / 2],
+                                           const Row (&rows)[2], unsigned char* mine, int g,
+                                           int t, int lane, int row0, int n0, int M, int N) {
+    constexpr int PASS_COLS = 128 / OB;
+    __syncwarp();  // the previous output's reads of the buffers are done
+#pragma unroll
+    for (int ps = 0; ps < (BN + PASS_COLS - 1) / PASS_COLS; ++ps) {
+        unsigned char* buf = mine + (ps & 1) * BUF;
+#pragma unroll
+        for (int jj = 0; jj < PASS_COLS / 8; ++jj) {
+            const int j = ps * (PASS_COLS / 8) + jj;
+            if (j < BN / 8) {
+#pragma unroll
+                for (int h = 0; h < 2; ++h) {
+                    void* dst = buf + (g + 8 * h) * PITCH + (jj * 8 + t * 2) * OB;
+                    if constexpr (WHICH == 1)
+                        epi.stage(dst, d[4 * j + 2 * h], d[4 * j + 2 * h + 1]);
+                    else
+                        epi.stage2(dst, rows[h], n0 + j * 8 + t * 2, d[4 * j + 2 * h],
+                                   d[4 * j + 2 * h + 1]);
+                }
+            }
+        }
+        __syncwarp();
+        // a pass that runs past BN (224 bf16 columns: 3.5 lines) is cut to
+        // the tile's last columns
+        const int left = BN - ps * PASS_COLS;  // constant once unrolled
+        const int chunks = (left < PASS_COLS ? left : PASS_COLS) * OB / 16;
+#pragma unroll
+        for (int c = lane; c < 16 * chunks; c += 32) {
+            const int r = c / chunks, ch = c % chunks;
+            const int gm = row0 + r, gn = n0 + ps * PASS_COLS + ch * (16 / OB);
+            if (gm < M && gn < N) {
+                const uint4 v = *reinterpret_cast<const uint4*>(buf + r * PITCH + ch * 16);
+                if constexpr (WHICH == 1) epi.store16(gm, gn, v);
+                else epi.store2_16(gm, gn, v);
+            }
+        }
+        // the next pass writes the other buffer; the one after it follows
+        // the next __syncwarp, past every lane's reads here
+    }
+}
+
+// CN = 1: persistent blocks walk the 128 x BN tiles. CN > 1 (a cluster of
+// CN blocks along N, N == CN * BN): each cluster walks 128-row blocks, and
+// its block of rank r takes the block's N-tile r, so a cluster holds whole
+// rows. Block 0 of the cluster loads each K-block of A once and multicasts
+// it to all CN (A's reads from L2 drop by CN); every block loads its own W
+// tile. A stage of block 0 is refilled only when the consumers of every
+// block of the cluster have released it: block 0's empty barriers count
+// the arrivals of all 8 * CN consumer warps, the others' their own 8.
+template <typename T, int BN, int CN, class Epi>
 __global__ void __launch_bounds__(GEMM_THREADS, 1)
 gemm_sm90(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tw, int M,
           int N, int kblocks, const Epi epi) {
     using Acc = typename GemmType<T>::Acc;
-    using S = GemmShape<BN, Epi::OUT_BYTES>;
+    using RP = RowPass<Epi>;
+    constexpr int OB1 = Epi::OUT_BYTES, OB2 = RP::OUT2_BYTES, NS = RP::NSTAT;
+    constexpr int XBYTES = xbytes<Epi, CN>();
+    using S = GemmShape<BN, cmax<OB1, OB2>(), XBYTES>;
     extern __shared__ unsigned char gemm_smem_raw[];
     // the swizzle repeats every 1024 bytes of the shared window: align to it
     unsigned char* smem =
         gemm_smem_raw + ((SW128_ATOM - (shared_u32(gemm_smem_raw) & (SW128_ATOM - 1))) &
                          (SW128_ATOM - 1));
     unsigned char* staging = smem + S::STAGES * S::STAGE;
-    uint64_t* full = reinterpret_cast<uint64_t*>(staging + S::STAGING);
+    float* xbuf = reinterpret_cast<float*>(staging + S::STAGING);
+    uint64_t* full = reinterpret_cast<uint64_t*>(staging + S::STAGING + XBYTES);
     uint64_t* empty = full + S::STAGES;
+    uint64_t* xbar = empty + S::STAGES;  // 8 consumer warps x 2 slots
     const int tid = threadIdx.x, wg = tid >> 7;
+    const int rank = CN > 1 ? static_cast<int>(cluster_rank()) : 0;
     if (tid == 0) {
         for (int s = 0; s < S::STAGES; ++s) {
-            mbar_init(&full[s], 1);   // the producer's arrival + the TMA bytes
-            mbar_init(&empty[s], 8);  // one arrival per consumer warp
+            mbar_init(&full[s], 1);  // the producer's arrival + the TMA bytes
+            // one arrival per consumer warp (of the whole cluster at block 0)
+            mbar_init(&empty[s], rank == 0 ? 8 * CN : 8);
         }
+        // the row exchange, two slots for each consumer warp: the warp's
+        // own arrival with the bytes it expects from the cluster
+        for (int s = 0; s < 16; ++s) mbar_init(&xbar[s], 1);
         mbar_init_fence();
     }
-    __syncthreads();
-    const int ntiles = (N + BN - 1) / BN, tiles = (M + GEMM_BM - 1) / GEMM_BM * ntiles;
+    if constexpr (CN > 1) cluster_sync();  // no block touches another's barriers before
+    else __syncthreads();
+    const int ntiles = (N + BN - 1) / BN, mtiles = (M + GEMM_BM - 1) / GEMM_BM;
+    const int units = CN > 1 ? mtiles : mtiles * ntiles;
+    const int first = CN > 1 ? static_cast<int>(cluster_index()) : blockIdx.x;
+    const int step = CN > 1 ? static_cast<int>(cluster_count()) : gridDim.x;
     constexpr int KSTEP = SW128_ROW / sizeof(T);  // elements of K per stage
 
     if (wg == 2) {
@@ -160,17 +307,38 @@ gemm_sm90(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtens
             tma_prefetch_desc(&tw);
             int stage = 0;
             unsigned phase = 0;
-            for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-                const int m0 = tile / ntiles * GEMM_BM, n0 = tile % ntiles * BN;
+            for (int u = first; u < units; u += step) {
+                const int m0 = (CN > 1 ? u : u / ntiles) * GEMM_BM;
+                const int n0 = (CN > 1 ? rank : u % ntiles) * BN;
                 for (int kb = 0; kb < kblocks; ++kb) {
                     mbar_wait(&empty[stage], phase ^ 1);  // passes at once on the first lap
                     unsigned char* st = smem + stage * S::STAGE;
                     mbar_arrive_tx(&full[stage], S::STAGE);
-                    tma_load_2d(st, &ta, &full[stage], kb * KSTEP, m0);
+                    if constexpr (CN > 1) {
+                        if (rank == 0)
+                            tma_load_2d_multicast(st, &ta, &full[stage], kb * KSTEP, m0,
+                                                  static_cast<uint16_t>((1u << CN) - 1));
+                    } else {
+                        tma_load_2d(st, &ta, &full[stage], kb * KSTEP, m0);
+                    }
                     tma_load_2d(st + S::A_BYTES, &tw, &full[stage], kb * KSTEP, n0);
                     if (++stage == S::STAGES) {
                         stage = 0;
                         phase ^= 1;
+                    }
+                }
+            }
+            if constexpr (CN > 1) {
+                // block 0 stays until every consumer of the cluster has
+                // released every stage: their arrivals land in its shared
+                // memory, which must outlive them
+                if (rank == 0) {
+                    for (int s = 0; s < S::STAGES; ++s) {
+                        mbar_wait(&empty[stage], phase ^ 1);
+                        if (++stage == S::STAGES) {
+                            stage = 0;
+                            phase ^= 1;
+                        }
                     }
                 }
             }
@@ -182,10 +350,21 @@ gemm_sm90(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtens
         Acc d[BN / 2];
 #pragma unroll
         for (int i = 0; i < BN / 2; ++i) d[i] = Acc(0);
-        int stage = 0;
+        int stage = 0, xk = 0;
         unsigned phase = 0;
-        for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-            const int m0 = tile / ntiles * GEMM_BM, n0 = tile % ntiles * BN;
+        // releases a stage: to this block's barrier and, in a cluster, to
+        // block 0's, whose producer multicasts A into every block's stage
+        auto release = [&](int s) {
+            if (lane == 0) {
+                mbar_arrive(&empty[s]);
+                if constexpr (CN > 1) {
+                    if (rank != 0) mbar_arrive_cluster(cluster_addr(&empty[s], 0));
+                }
+            }
+        };
+        for (int u = first; u < units; u += step) {
+            const int m0 = (CN > 1 ? u : u / ntiles) * GEMM_BM;
+            const int n0 = (CN > 1 ? rank : u % ntiles) * BN;
             int held = 0;
             for (int kb = 0; kb < kblocks; ++kb) {
                 mbar_wait(&full[stage], phase);
@@ -200,7 +379,7 @@ gemm_sm90(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtens
                              (kb | k) != 0);
                 wg_commit();
                 wg_wait<1>();  // the previous K-block's group has read its stage
-                if (kb > 0 && lane == 0) mbar_arrive(&empty[held]);
+                if (kb > 0) release(held);
                 held = stage;
                 if (++stage == S::STAGES) {
                     stage = 0;
@@ -209,13 +388,11 @@ gemm_sm90(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtens
             }
             wg_wait<0>();
             fence_regs(d);
-            if (lane == 0) mbar_arrive(&empty[held]);
+            release(held);
 
             // the epilogue: first every load and all arithmetic of this
             // thread's pairs (results kept in d), so that the loads overlap;
-            // then the outputs go out through the warp's staging buffers,
-            // one 128-byte line of each of the warp's 16 rows per pass, as
-            // full-line 16-byte stores
+            // then the outputs go out through the warp's staging buffers
             typename Epi::Row rows[2];
 #pragma unroll
             for (int h = 0; h < 2; ++h) {
@@ -229,37 +406,112 @@ gemm_sm90(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtens
                     }
                 }
             }
-            constexpr int OB = Epi::OUT_BYTES, PASS_COLS = 128 / OB;
             unsigned char* mine = staging + (wg * 4 + warp) * 2 * S::BUF;
             const int row0 = m0 + wg * 64 + warp * 16;
-            __syncwarp();  // the previous tile's reads of the buffers are done
+            if constexpr (OB1 > 0)
+                store_rows<1, BN, OB1, gemm_pitch(OB1), S::BUF>(epi, d, rows, mine, g, t, lane,
+                                                              row0, n0, M, N);
+            if constexpr (RP::ROUNDS > 0) {
 #pragma unroll
-            for (int ps = 0; ps < (BN + PASS_COLS - 1) / PASS_COLS; ++ps) {
-                unsigned char* buf = mine + (ps & 1) * S::BUF;
+                for (int r = 0; r < RP::ROUNDS; ++r) {
+                    const bool mx = Epi::is_max(r);
+                    float part[2][NS], total[2][NS];
 #pragma unroll
-                for (int jj = 0; jj < PASS_COLS / 8; ++jj) {
-                    const int j = ps * (PASS_COLS / 8) + jj;
-                    if (j < BN / 8) {
+                    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+                        for (int s = 0; s < NS; ++s) part[h][s] = 0.f;
+                        if (row0 + g + 8 * h < M) {
+#pragma unroll
+                            for (int j = 0; j < BN / 8; ++j)
+                                epi.stat(r, rows[h], n0 + j * 8 + t * 2, d[4 * j + 2 * h],
+                                         d[4 * j + 2 * h + 1], part[h]);
+                        }
+#pragma unroll
+                        for (int s = 0; s < NS; ++s) {
+#pragma unroll
+                            for (int o = 1; o <= 2; o <<= 1) {
+                                const float v = __shfl_xor_sync(0xffffffffu, part[h][s], o);
+                                part[h][s] = mx ? fmaxf(part[h][s], v) : part[h][s] + v;
+                            }
+                        }
+                    }
+                    if constexpr (CN == 1) {
 #pragma unroll
                         for (int h = 0; h < 2; ++h)
-                            epi.stage(buf + (g + 8 * h) * S::PITCH + (jj * 8 + t * 2) * OB,
-                                      d[4 * j + 2 * h], d[4 * j + 2 * h + 1]);
+#pragma unroll
+                            for (int s = 0; s < NS; ++s) total[h][s] = part[h][s];
+                    } else {
+                        // slot xk & 1 of this warp's rows in every block of
+                        // the cluster gets this block's partials of the
+                        // quad's two rows, each store completing on that
+                        // warp's barrier there (st.async): the warps of a
+                        // block exchange independently, each with the
+                        // warps of the same rows in the other blocks, and
+                        // a warp's barrier completes when it has arrived
+                        // (expecting the bytes of all CN blocks) and the
+                        // bytes have landed. A slot is written again two
+                        // rounds later, only after each of those warps
+                        // has sent the round between, which it does after
+                        // reading this one (past the warp-wide shuffles
+                        // of that round).
+                        const int slot = xk & 1;
+                        const unsigned parity = (xk >> 1) & 1;
+                        ++xk;
+                        float* xs = xbuf + slot * CN * GEMM_BM * NS;
+                        uint64_t* bar = &xbar[(wg * 4 + warp) * 2 + slot];
+                        const int lr = wg * 64 + warp * 16 + g;  // the quad's first row
+                        if (lane == 0) mbar_arrive_tx(bar, CN * 16 * NS * 4);
+                        if (t == 0) {
+#pragma unroll
+                            for (int c = 0; c < CN; ++c) {
+                                const uint32_t rbar = cluster_addr(bar, c);
+#pragma unroll
+                                for (int h = 0; h < 2; ++h)
+#pragma unroll
+                                    for (int s = 0; s < NS; ++s)
+                                        st_async_cluster(
+                                            cluster_addr(xs + (rank * GEMM_BM + lr + 8 * h) * NS + s, c),
+                                            part[h][s], rbar);
+                            }
+                        }
+                        mbar_wait(bar, parity);
+#pragma unroll
+                        for (int h = 0; h < 2; ++h) {
+#pragma unroll
+                            for (int s = 0; s < NS; ++s) {
+                                float v = xs[(lr + 8 * h) * NS + s];
+#pragma unroll
+                                for (int c = 1; c < CN; ++c) {
+                                    const float w = xs[(c * GEMM_BM + lr + 8 * h) * NS + s];
+                                    v = mx ? fmaxf(v, w) : v + w;
+                                }
+                                total[h][s] = v;
+                            }
+                        }
+                    }
+#pragma unroll
+                    for (int h = 0; h < 2; ++h) epi.fold(r, rows[h], total[h]);
+                    if (Epi::transforms(r)) {
+#pragma unroll
+                        for (int h = 0; h < 2; ++h) {
+                            if (row0 + g + 8 * h < M) {
+#pragma unroll
+                                for (int j = 0; j < BN / 8; ++j)
+                                    epi.transform(rows[h], n0 + j * 8 + t * 2, d[4 * j + 2 * h],
+                                                  d[4 * j + 2 * h + 1]);
+                            }
+                        }
                     }
                 }
-                __syncwarp();
-                // a pass that runs past BN (224 bf16 columns: 3.5 lines) is
-                // cut to the tile's last columns
-                const int left = BN - ps * PASS_COLS;  // constant once unrolled
-                const int chunks = (left < PASS_COLS ? left : PASS_COLS) * OB / 16;
+            }
+            if constexpr (OB2 > 0) {
+                store_rows<2, BN, OB2, gemm_pitch(OB2), S::BUF>(epi, d, rows, mine, g, t, lane,
+                                                              row0, n0, M, N);
+                if (rank == 0 && t == 0) {
 #pragma unroll
-                for (int c = lane; c < 16 * chunks; c += 32) {
-                    const int r = c / chunks, ch = c % chunks;
-                    const int gm = row0 + r, gn = n0 + ps * PASS_COLS + ch * (16 / OB);
-                    if (gm < M && gn < N)
-                        epi.store16(gm, gn, *reinterpret_cast<const uint4*>(buf + r * S::PITCH + ch * 16));
+                    for (int h = 0; h < 2; ++h)
+                        if (row0 + g + 8 * h < M) epi.row_done(rows[h], row0 + g + 8 * h);
                 }
-                // the next pass writes the other buffer; the one after it
-                // follows the next __syncwarp, past every lane's reads here
             }
         }
     }
@@ -320,25 +572,79 @@ inline int sm_count() {
     return n;
 }
 
+template <typename T, int BN, class Epi, int CN>
+using GemmShapeOf = GemmShape<BN, cmax<Epi::OUT_BYTES, RowPass<Epi>::OUT2_BYTES>(), xbytes<Epi, CN>()>;
+
+// A launch of gemm_sm90<T, BN, CN, Epi> in clusters of CN along x.
+template <int CN>
+struct ClusterLaunch {
+    cudaLaunchAttribute attr[1];
+    cudaLaunchConfig_t cfg;
+    ClusterLaunch(int blocks, int smem, cudaStream_t stream) : cfg{} {
+        attr[0].id = cudaLaunchAttributeClusterDimension;
+        attr[0].val.clusterDim.x = CN;
+        attr[0].val.clusterDim.y = 1;
+        attr[0].val.clusterDim.z = 1;
+        cfg.gridDim = dim3(blocks);
+        cfg.blockDim = dim3(GEMM_THREADS);
+        cfg.dynamicSmemBytes = smem;
+        cfg.stream = stream;
+        cfg.attrs = attr;
+        cfg.numAttrs = 1;
+    }
+};
+
+// The clusters of CN blocks of gemm_sm90<T, BN, CN, Epi> that fit on the
+// card at once (cudaOccupancyMaxActiveClusters), or a negative CUDA error.
+// The card places a cluster within one GPC, so this can be below SMs / CN.
+template <typename T, int BN, int CN, class Epi>
+int gemm_clusters_that_fit() {
+    using S = GemmShapeOf<T, BN, Epi, CN>;
+    auto kernel = gemm_sm90<T, BN, CN, Epi>;
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::SMEM);
+    if (err != cudaSuccess) return -static_cast<int>(err);
+    ClusterLaunch<CN> launch(CN * (sm_count() / CN), S::SMEM, nullptr);
+    int fit = 0;
+    err = cudaOccupancyMaxActiveClusters(&fit, kernel, &launch.cfg);
+    return err == cudaSuccess ? fit : -static_cast<int>(err);
+}
+
 // C = a (m, k) . w (n, k)^T through ``epi`` on ``stream``: two descriptors
-// encoded, one persistent launch of min(tiles, SMs) blocks.
-template <typename T, int BN, class Epi>
+// encoded, one persistent launch of min(tiles, SMs) blocks; with CN > 1
+// (n must be CN * BN), of min(row blocks, gemm_clusters_that_fit) clusters.
+template <typename T, int BN, int CN = 1, class Epi>
 cudaError_t launch_gemm_sm90(const void* a, const void* w, int m, int n, int k, const Epi& epi,
                              cudaStream_t stream) {
-    using S = GemmShape<BN, Epi::OUT_BYTES>;
+    static_assert(CN >= 1 && CN <= 8, "a portable cluster holds at most 8 blocks");
+    using S = GemmShapeOf<T, BN, Epi, CN>;
     if (m <= 0 || n <= 0 || k <= 0) return cudaErrorInvalidValue;
+    if ((CN > 1 || RowPass<Epi>::ROUNDS > 0) && n != CN * BN) return cudaErrorInvalidValue;
     CUtensorMap ta, tw;
     cudaError_t err = encode_kmajor<T>(&ta, a, m, k, GEMM_BM);
     if (err == cudaSuccess) err = encode_kmajor<T>(&tw, w, n, k, BN);
     if (err != cudaSuccess) return err;
-    auto kernel = gemm_sm90<T, BN, Epi>;
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::SMEM);
-    if (err != cudaSuccess) return err;
-    const int tiles = (m + GEMM_BM - 1) / GEMM_BM * ((n + BN - 1) / BN);
+    auto kernel = gemm_sm90<T, BN, CN, Epi>;
+    const int mtiles = (m + GEMM_BM - 1) / GEMM_BM;
     const int kblocks = static_cast<int>((static_cast<size_t>(k) * sizeof(T) + SW128_ROW - 1) /
                                          SW128_ROW);
-    const int grid = tiles < sm_count() ? tiles : sm_count();
-    kernel<<<grid, GEMM_THREADS, S::SMEM, stream>>>(ta, tw, m, n, kblocks, epi);
+    if constexpr (CN == 1) {
+        err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::SMEM);
+        if (err != cudaSuccess) return err;
+        const int tiles = mtiles * ((n + BN - 1) / BN);
+        const int grid = tiles < sm_count() ? tiles : sm_count();
+        kernel<<<grid, GEMM_THREADS, S::SMEM, stream>>>(ta, tw, m, n, kblocks, epi);
+    } else {
+        static int fit = 0;  // once per instantiation: the query costs host time
+        if (fit <= 0) {
+            fit = gemm_clusters_that_fit<T, BN, CN, Epi>();
+            if (fit < 0) return static_cast<cudaError_t>(-fit);
+            if (fit == 0) return cudaErrorInvalidConfiguration;
+        }
+        ClusterLaunch<CN> launch(CN * (mtiles < fit ? mtiles : fit), S::SMEM, stream);
+        err = cudaLaunchKernelEx(&launch.cfg, kernel, ta, tw, m, n, kblocks, epi);
+        if (err != cudaSuccess) return err;
+    }
     return cudaGetLastError();
 }
 

@@ -13,8 +13,17 @@
 // The TPU kernel runs a whole layer per grid step with the layer's weights
 // resident in VMEM. One DeiT-S layer holds ~3.5 MB of bf16 weights against
 // 227 KB of shared memory per H100 block, so that shape does not transfer:
-// a layer here is seven launches (LN1[+gate], qkv, attention, proj, LN2,
-// fc1, fc2) whose intermediates make one trip through device memory each.
+// a layer here is six launches (LN1[+gate], qkv, attention, proj with LN2
+// in its epilogue, fc1, fc2) whose intermediates make one trip through
+// device memory each; inside a segment (B2) fc2's epilogue also computes
+// the next layer's token gate and LN1, so a segment of n layers is 1 + 5n
+// launches. The row passes in the epilogues (vit_block_epi.cuh's
+// RowEpilogue, launched from vit_block_rows.cu) need a whole row: they
+// run on the GEMM core's cluster form, CN blocks along N exchanging row
+// statistics in distributed shared memory, at the widths where N is CN
+// tiles (ops/vit_block.py::row_cluster: DeiT-S and T2T-ViT-19); any other
+// width runs the row pass as a launch of its own (seven a layer, the
+// parent's structure).
 //
 // What bounds it on the H100: the four weight products carry ~92% of the
 // layer's FLOPs (DeiT-S, L=197: ~0.70 of ~0.76 GFLOP per image). At bs128
@@ -40,13 +49,17 @@
 // keep if logit0 >= logit1, class token pinned, composed into the mask.
 //
 // The layer's attention launch (lt_attention) runs this file's
-// register-resident attention_kernel up to ATT_MAX_L = 256 keys, and past
-// that attention.cu's forward, which streams the keys in tiles, in the
-// exact or the deferred form with the same head gate.
+// register-resident attention_kernel for short rows and attention.cu's
+// forward, which streams the keys in tiles, for long ones, in the exact or
+// the deferred form with the same head gate: the split (ATT_ROUTE_EXACT,
+// ATT_ROUTE_DEFERRED) is where the two kernels measured level.
 //
-// B6 keeps B1's launch structure and attention (exact form) and swaps the
-// four products for the core's s8 form (s8 x s8 -> s32, wgmma k32), bound
-// by bytes at twice the bf16 peak. Rounding points where B6 differs
+// B6 keeps B1's attention (exact form) and swaps the four products for the
+// core's s8 form (s8 x s8 -> s32, wgmma k32), bound by bytes at twice the
+// bf16 peak: seven launches, LN1 + row quantise, qkv, attention, row
+// quantise, proj with LN2 and its quantiser in the epilogue, fc1 with erf
+// GELU and its quantiser in the epilogue (the f32 u, 155 MB at DeiT-S
+// bs128, is never stored), fc2. Rounding points where B6 differs
 // from B1 (vit_block.py:272-287): LN1's output stays f32 into the quantiser
 // (B1 rounds it to bf16); LN2 reads the f32 x2 unrounded (B1 rounds it to
 // bf16 first); LayerNorm is always two-pass and GELU always the erf form;
@@ -73,6 +86,7 @@
 
 #include "gemm_sm90.cuh"
 #include "mma_common.cuh"
+#include "vit_block_epi.cuh"
 
 namespace {
 
@@ -84,18 +98,6 @@ namespace {
 // ---------------------------------------------------------------------------
 constexpr int LN_ROWS = 4;   // warps (rows) per block
 constexpr int LN_MAXV = 32;  // values per lane: d <= 1024
-
-// Body variants (template parameters; the production layer instantiates
-// LN_TWOPASS / LN_ONEPASS, ACT_ERF / ACT_TANH, SM_EXACT / SM_DEFERRED with
-// the row mask on and the residual in f32). The others are the ablations of
-// the block-budget probe (tools/probe_block_budget.py, kernel P1).
-enum LnForm { LN_TWOPASS = 0, LN_ONEPASS = 1, LN_SCALE = 2 };
-enum Act { ACT_ERF = 0, ACT_TANH = 1, ACT_SILU = 2, ACT_NONE = 3 };
-enum Softmax { SM_EXACT = 0, SM_DEFERRED = 1, SM_LINEAR = 2, SM_NOMAX = 3 };
-// lt_gemm's ``variant``: bits 0-1 the fc1 activation, bit 2 drops the row
-// mask from the proj and fc2 epilogues, bit 3 rounds the proj residual to
-// bf16 (x2 = bf16(x + bf16((acc + b) * rmask))).
-constexpr int VAR_NO_ROWMASK = 4, VAR_BF16_RES = 8;
 
 template <bool IN_F32, int LNF>
 __global__ void __launch_bounds__(LN_ROWS * 32)
@@ -190,17 +192,10 @@ layernorm_kernel(const void* __restrict__ xin, bf16* __restrict__ out,
 // vit_block.py:280) or of the f32 GELU output (155 MB at DeiT-S bs128);
 // d <= 4096.
 // ---------------------------------------------------------------------------
-constexpr float QEPS = 1e-6f;
-constexpr float INV127 = static_cast<float>(1.0 / 127.0);
-
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
     return v;
-}
-
-__device__ __forceinline__ int8_t quant_code(float y, float s) {
-    return static_cast<int8_t>(fminf(fmaxf(rintf(__fdiv_rn(y, s)), -127.f), 127.f));
 }
 
 // Four values of a bf16 or f32 row, 8 or 16 bytes at once.
@@ -314,134 +309,6 @@ rowquant_kernel(const void* __restrict__ xin, int8_t* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------------
-// The layer's four weight products: C[m, n] = sum_k A[m, k] W[n, k] + bias[n]
-// through one of the block's epilogues, on the GEMM core of gemm_sm90.cuh
-// (TMA ring, warp-specialised wgmma, persistent tiles of 128 x BN). Rows
-// past M and columns past N are zero-filled on load and not stored; N % 8
-// == 0 (column pairs).
-//
-// bf16 operands: f32 sums, K % 8 == 0. s8 operands: exact s32 sums (127^2 *
-// K < 2^31 up to K = 133,000), K % 16 == 0; the epilogue dequantises first,
-// acc * xs[m] * ws[n] + bias[n], with separately rounded multiplies and add
-// as the plain version computes it. Keep the epilogues' arithmetic and its
-// order: tools/compare_b1_build.py holds B6's launches bit for bit to
-// earlier builds.
-// ---------------------------------------------------------------------------
-enum Epilogue {
-    EPI_QKV = 0,   // bf16(acc + b)
-    EPI_PROJ = 1,  // f32: x + (acc + b) * rmask      (resid = bf16 x)
-    EPI_FC1 = 2,   // bf16(GELU(acc + b)); s8 form: f32 erf GELU, unrounded
-    EPI_FC2 = 3,   // bf16(x2 + (acc + b) * rmask)    (resid = f32 x2)
-};
-
-__device__ __forceinline__ float gelu_erf(float x) {
-    return 0.5f * x * (1.f + erff(x * 0.7071067811865476f));
-}
-// fast_math's GELU, the tanh form with the hardware's tanh (tanh.approx,
-// relative error <= 2^-10.9, below the bf16 rounding of u that follows): a
-// single instruction where libdevice's tanhf takes about twenty, and fc1's
-// epilogue, run while the tensor cores wait, is bound by its instruction
-// count (PERF.md).
-__device__ __forceinline__ float tanh_approx(float y) {
-    float r;
-    asm("tanh.approx.f32 %0, %1;" : "=f"(r) : "f"(y));
-    return r;
-}
-__device__ __forceinline__ float gelu_tanh(float x) {
-    return 0.5f * x * (1.f + tanh_approx(0.7978845608028654f * (x + 0.044715f * x * x * x)));
-}
-
-__device__ __forceinline__ float silu_gelu(float x) {
-    return x / (1.f + expf(-1.702f * x));
-}
-
-template <int ACT>
-__device__ __forceinline__ float act_fn(float x) {
-    if constexpr (ACT == ACT_ERF) return gelu_erf(x);
-    else if constexpr (ACT == ACT_TANH) return gelu_tanh(x);
-    else if constexpr (ACT == ACT_SILU) return silu_gelu(x);
-    else return x;
-}
-
-struct EpiArgs {
-    const bf16* bias;
-    const void* resid;
-    const float* rmask;
-    void* out;
-    const float* xs;  // s8: per-row activation scales
-    const float* ws;  // s8: per-column weight scales
-    int n;            // row stride of resid and out
-};
-
-template <int EPI, bool S8, int ACT = ACT_ERF, bool ROWMASK = true, bool BF16RES = false>
-struct BlockEpilogue {
-    EpiArgs p;
-    struct Row {
-        float rm, rs;
-    };
-    __device__ __forceinline__ Row row(int gm) const {
-        Row r{1.f, 1.f};
-        if constexpr ((EPI == EPI_PROJ || EPI == EPI_FC2) && ROWMASK) r.rm = p.rmask[gm];
-        if constexpr (S8) r.rs = p.xs[gm];
-        return r;
-    }
-    // f32 results (bf16 outputs are rounded by the store), the arithmetic
-    // and its order as the plain version's
-    template <typename Acc>
-    __device__ __forceinline__ void apply(const Row& r, int gm, int gn, Acc& a0, Acc& a1) const {
-        const size_t o = (size_t)gm * p.n + gn;
-        const float rm = r.rm;
-        float v0 = static_cast<float>(a0);
-        float v1 = static_cast<float>(a1);
-        if constexpr (S8) {
-            const float2 w = *reinterpret_cast<const float2*>(p.ws + gn);
-            v0 = __fmul_rn(__fmul_rn(v0, r.rs), w.x);
-            v1 = __fmul_rn(__fmul_rn(v1, r.rs), w.y);
-        }
-        const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p.bias + gn));
-        v0 = __fadd_rn(v0, b.x);
-        v1 = __fadd_rn(v1, b.y);
-        float2 y;
-        if constexpr (EPI == EPI_FC1 && S8) {
-            y = make_float2(gelu_erf(v0), gelu_erf(v1));
-        } else if constexpr (EPI == EPI_QKV) {
-            y = make_float2(v0, v1);
-        } else if constexpr (EPI == EPI_PROJ) {
-            const float2 x = __bfloat1622float2(
-                *reinterpret_cast<const __nv_bfloat162*>(static_cast<const bf16*>(p.resid) + o));
-            if constexpr (BF16RES) {
-                y = make_float2(round_bf(x.x + round_bf(v0 * rm)), round_bf(x.y + round_bf(v1 * rm)));
-            } else if constexpr (ROWMASK) {
-                y = make_float2(x.x + v0 * rm, x.y + v1 * rm);
-            } else {
-                y = make_float2(x.x + v0, x.y + v1);
-            }
-        } else if constexpr (EPI == EPI_FC1) {
-            y = make_float2(act_fn<ACT>(v0), act_fn<ACT>(v1));
-        } else {
-            const float2 x2 = *reinterpret_cast<const float2*>(static_cast<const float*>(p.resid) + o);
-            y = ROWMASK ? make_float2(x2.x + v0 * rm, x2.y + v1 * rm) : make_float2(x2.x + v0, x2.y + v1);
-        }
-        set_float(a0, y.x);
-        set_float(a1, y.y);
-    }
-    // f32 out for proj (x2) and the s8 fc1, bf16 (rounded here) otherwise
-    static constexpr bool F32_OUT = EPI == EPI_PROJ || (EPI == EPI_FC1 && S8);
-    static constexpr int OUT_BYTES = F32_OUT ? 4 : 2;
-    template <typename Acc>
-    __device__ __forceinline__ void stage(void* dst, Acc a0, Acc a1) const {
-        if constexpr (F32_OUT) {
-            *reinterpret_cast<float2*>(dst) = make_float2(as_float(a0), as_float(a1));
-        } else {
-            *reinterpret_cast<unsigned*>(dst) = pack_bf16(as_float(a0), as_float(a1));
-        }
-    }
-    __device__ __forceinline__ void store16(int gm, int gn, uint4 v) const {
-        *reinterpret_cast<uint4*>(static_cast<char*>(p.out) + ((size_t)gm * p.n + gn) * OUT_BYTES) = v;
-    }
-};
-
-// ---------------------------------------------------------------------------
 // Masked attention, dh = 64. One block per (query tile of 64, head, image),
 // 4 warps of 16 query rows. K and V of all L keys and the query tile live
 // in shared memory (rows padded to 72 elements for conflict-free ldmatrix);
@@ -456,6 +323,23 @@ struct BlockEpilogue {
 // ---------------------------------------------------------------------------
 constexpr int DH = 64, AQT = 64, AWARPS = 4, KLD = DH + 8;
 constexpr int ATT_MAX_L = 256;
+// lt_attention's split between attention_kernel and attention.cu's
+// streaming forward (attn_fwd_bf16): the exact form streams from
+// ATT_ROUTE_EXACT keys on, the deferred (fast_math) form from
+// ATT_ROUTE_DEFERRED on. Measured in turns at DeiT-S bs128 (chip_smoke.py
+// kernels, H100 80GB HBM3, 700 W; the head gate moves neither by more
+// than 3%), ms streaming / resident:
+//   L    exact            deferred
+//   98   0.0358 / 0.0368  0.0365 / 0.0317
+//   128  0.0421 / 0.0416  0.0434 / 0.0392
+//   137  0.0855 / 0.0961  0.0865 / 0.0524
+//   197  0.1125 / 0.1255  0.1112 / 0.1213
+// The resident kernel's deferred form is fastest up to 144 keys (nine
+// 16-key tiles in registers); past that its thirteen tiles lose to the
+// streaming one. Its exact form divides every p before P.V and is no
+// faster anywhere: streaming past 128 keys (at 98 and 128 the two are
+// within 3%, the resident one kept).
+constexpr int ATT_ROUTE_EXACT = 129, ATT_ROUTE_DEFERRED = 145;
 
 __host__ __device__ __forceinline__ int att_lp(int l) { return (l + 15) / 16 * 16; }
 __host__ __forceinline__ size_t att_smem_bytes(int l) {
@@ -761,18 +645,12 @@ int lt_attn_fwd(const void* qkv, const void* key_mask, const void* head_gate, vo
                 void* stats, int b, int l, int num_heads, float sm_scale, int deferred, int f32,
                 void* stream);  // attention.cu
 
-// ``head_gate``: (b, num_heads) f32 0/1 output gate, or null. ``softmax``:
-// SM_EXACT, SM_DEFERRED (fast_math), SM_LINEAR or SM_NOMAX. Past
-// ATT_MAX_L the exact and deferred forms go to attention.cu's forward,
-// which streams the keys; the ablations have no form there.
-int lt_attention(const void* qkv, const void* key_mask, const void* head_gate, void* out, int b,
-                 int l, int num_heads, float sm_scale, int softmax, void* stream) {
-    if (l > ATT_MAX_L) {
-        if (softmax != SM_EXACT && softmax != SM_DEFERRED)
-            return static_cast<int>(cudaErrorInvalidValue);
-        return lt_attn_fwd(qkv, key_mask, head_gate, out, nullptr, b, l, num_heads, sm_scale,
-                           softmax == SM_DEFERRED, 0, stream);
-    }
+// This file's register-resident attention_kernel alone (l <= ATT_MAX_L):
+// the ablated softmaxes' only form, and the exact and deferred ones' below
+// ATT_ROUTE_EXACT / ATT_ROUTE_DEFERRED keys.
+int lt_attention_resident(const void* qkv, const void* key_mask, const void* head_gate,
+                          void* out, int b, int l, int num_heads, float sm_scale, int softmax,
+                          void* stream) {
     const bf16* Q = static_cast<const bf16*>(qkv);
     const float* KM = static_cast<const float*>(key_mask);
     const float* HG = static_cast<const float*>(head_gate);
@@ -789,6 +667,23 @@ int lt_attention(const void* qkv, const void* key_mask, const void* head_gate, v
     else if (l <= ATT_MAX_L) err = launch_attention<16>(Q, KM, HG, O, b, l, num_heads, sm_scale, softmax, s);
     else err = cudaErrorInvalidValue;
     return static_cast<int>(err);
+}
+
+// ``head_gate``: (b, num_heads) f32 0/1 output gate, or null. ``softmax``:
+// SM_EXACT, SM_DEFERRED (fast_math), SM_LINEAR or SM_NOMAX. The exact and
+// deferred forms go to attention.cu's forward, which streams the keys,
+// from ATT_ROUTE_EXACT / ATT_ROUTE_DEFERRED keys on, and to
+// attention_kernel below; the ablations have no form there.
+int lt_attention(const void* qkv, const void* key_mask, const void* head_gate, void* out, int b,
+                 int l, int num_heads, float sm_scale, int softmax, void* stream) {
+    static_assert(ATT_ROUTE_EXACT <= ATT_MAX_L + 1 && ATT_ROUTE_DEFERRED <= ATT_MAX_L + 1,
+                  "attention_kernel takes L <= ATT_MAX_L");
+    if ((softmax == SM_EXACT && l >= ATT_ROUTE_EXACT) ||
+        (softmax == SM_DEFERRED && l >= ATT_ROUTE_DEFERRED))
+        return lt_attn_fwd(qkv, key_mask, head_gate, out, nullptr, b, l, num_heads, sm_scale,
+                           softmax == SM_DEFERRED, 0, stream);
+    return lt_attention_resident(qkv, key_mask, head_gate, out, b, l, num_heads, sm_scale,
+                                 softmax, stream);
 }
 
 // LayerNorm of bf16 (x_f32 = 0) or unrounded f32 rows, quantised to s8.

@@ -3,7 +3,8 @@
 // operands in shared memory or A in registers, and the fences around them;
 // for the GEMM core (gemm_sm90.cuh) the 128-byte-swizzled K-major
 // descriptor, the wide m64nN forms (bf16 k16 -> f32, s8 k32 -> s32), the
-// mbarrier and TMA primitives and setmaxnreg.
+// mbarrier and TMA primitives (multicast too), the thread-block cluster's
+// (distributed shared memory) and setmaxnreg.
 //
 // The core-matrix layout of a tile of 64 rows x 64 bf16 columns: an 8 x 8
 // block of elements (8 rows of 16 bytes) is one core matrix, 128 contiguous
@@ -281,6 +282,64 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
 }
 __device__ __forceinline__ void tma_prefetch_desc(const CUtensorMap* map) {
     asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
+
+// --- thread-block clusters ----------------------------------------------------
+// A cluster's blocks sit on neighbouring SMs and address each other's shared
+// memory (distributed shared memory): mapa turns a variable's shared address
+// into the address of the same variable in block ``rank`` of the cluster.
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+    uint32_t r;
+    asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+    return r;
+}
+__device__ __forceinline__ uint32_t cluster_index() {
+    uint32_t r;
+    asm volatile("mov.u32 %0, %%clusterid.x;\n" : "=r"(r));
+    return r;
+}
+__device__ __forceinline__ uint32_t cluster_count() {
+    uint32_t r;
+    asm volatile("mov.u32 %0, %%nclusterid.x;\n" : "=r"(r));
+    return r;
+}
+// Every thread of every block of the cluster; orders the barriers'
+// initialisation before any block uses another's.
+__device__ __forceinline__ void cluster_sync() {
+    asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+    asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ uint32_t cluster_addr(const void* p, uint32_t rank) {
+    uint32_t r;
+    asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(shared_u32(p)), "r"(rank));
+    return r;
+}
+// Four bytes into the shared memory of a block of the cluster (``addr``
+// from cluster_addr), completed on that block's barrier ``bar`` (also from
+// cluster_addr) as 4 transaction bytes: the value is there when the
+// barrier's phase completes, with no fence on either side.
+__device__ __forceinline__ void st_async_cluster(uint32_t addr, float v, uint32_t bar) {
+    asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.f32 [%0], %1, [%2];\n" ::"r"(
+                     addr),
+                 "f"(v), "r"(bar)
+                 : "memory");
+}
+// One arrival on a barrier of any block of the cluster (``bar`` from
+// cluster_addr).
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar) {
+    asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+// tma_load_2d into the same shared offset of every block in ``mask`` (bit
+// r: cluster rank r), completing each one's barrier at that offset.
+__device__ __forceinline__ void tma_load_2d_multicast(void* dst, const CUtensorMap* map,
+                                                      uint64_t* bar, int c0, int c1,
+                                                      uint16_t mask) {
+    asm volatile(
+        "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+        ".multicast::cluster [%0], [%1, {%3, %4}], [%2], %5;\n" ::"r"(shared_u32(dst)),
+        "l"(reinterpret_cast<uint64_t>(map)), "r"(shared_u32(bar)), "r"(c0), "r"(c1), "h"(mask)
+        : "memory");
 }
 
 // Moves registers between the warpgroups of a warp-specialised block: the

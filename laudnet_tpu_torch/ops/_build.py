@@ -36,9 +36,20 @@ _SIGNATURES = {
     "lt_gemm": (_P, _P, _P, _I, _I, _I, _I, _P, _P, _I, _P, _P),
     # a, xs, w, ws, bias, m, n, k, epilogue, resid, rmask, out, stream
     "lt_gemm_s8": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P),
+    # a, w, bias, m, n, k, epilogue, resid, rmask, variant, out, ln_form,
+    # ln_w, ln_b, eps, out2, tp_w, tp_b, mask, seq_len, stream
+    "lt_gemm_rows": (_P, _P, _P, _I, _I, _I, _I, _P, _P, _I, _P, _I, _P, _P,
+                     _F, _P, _P, _P, _P, _I, _P),
+    # a, xs, w, ws, bias, m, n, k, epilogue, resid, rmask, out, ln_w, ln_b,
+    # eps, q, scale, stream
+    "lt_gemm_s8_rows": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P,
+                        _P, _F, _P, _P, _P),
+    # kind, n (what cudaOccupancyMaxActiveClusters returns)
+    "lt_gemm_clusters": (_I, _I),
     # qkv, key_mask, head_gate, out, b, l, num_heads, sm_scale, softmax,
     # stream
     "lt_attention": (_P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
+    "lt_attention_resident": (_P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
     # x, x_is_f32, q, scale, w, b, rows, d, eps, stream
     "lt_layernorm_quant": (_P, _I, _P, _P, _P, _P, _I, _I, _F, _P),
     # x, x_is_f32, q, scale, rows, d, stream

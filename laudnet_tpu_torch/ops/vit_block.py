@@ -37,7 +37,7 @@ import dataclasses
 import torch
 
 from laudnet_tpu_torch.ops.quant import (int8_linear, int_matmul,
-                                        quantize_weight)
+                                        quantize_rows, quantize_weight)
 
 NEG = -1e9
 DH = 64            # head width the attention kernel takes
@@ -353,6 +353,22 @@ def _f32(t):
     return None if t is None else t.float().contiguous()
 
 
+def row_cluster(n, *, wide=True, fc1=False):
+    """The blocks of a cluster that holds whole rows of a product N wide, or
+    0 where the GEMM core's row epilogues do not take N
+    (`csrc/vit_block_rows.cu::row_cluster`). The D-wide products (proj,
+    and fc2 inside a segment) take CN = 2 tiles of the core's width (224
+    where it divides N and 192 does not and ``wide``, else 192): DeiT-S's
+    384, T2T-ViT-19's 448 (P1's ablated bodies, ``wide`` off, at 192
+    only). The s8 fc1 (``fc1``) takes tiles of 192 and CN = 2, 7 or 8
+    (hidden 384, T2T-ViT-19's 1344, DeiT-S's 1536). Other widths run the
+    product and its row pass as separate launches."""
+    if fc1:
+        return n // 192 if n % 192 == 0 and n // 192 in (2, 7, 8) else 0
+    bn = 224 if wide and n % 224 == 0 and n % 192 else 192
+    return 2 if n == 2 * bn else 0
+
+
 def _gemm(lib, a, w, n, k, epi, out, resid=None, rmask=None, variant=0):
     """One bf16 product of the layer (``lt_gemm``): ``a`` (M, k), ``w``
     {weight (n, k), bias (n,)}, epilogue ``epi`` (EPI_*), into ``out``."""
@@ -363,6 +379,26 @@ def _gemm(lib, a, w, n, k, epi, out, resid=None, rmask=None, variant=0):
         epi, _ptr(resid), _ptr(rmask), variant, _ptr(out),
         torch.cuda.current_stream(a.device).cuda_stream), "gemm kernel")
     return out
+
+
+def _gemm_rows(lib, a, w, n, k, epi, out, out2, resid, rmask, ln, ln_eps,
+               variant=0, ln_form=0, policy=None, mask=None, seq_len=1):
+    """A bf16 product with its row pass on a cluster (``lt_gemm_rows``):
+    EPI_PROJ writes x2 to ``out`` and bf16(LN2(bf16(x2))) (``ln``
+    {weight, bias}) to ``out2``; EPI_FC2 writes out and the next layer's
+    bf16(LN1(out)), composing its token ``policy`` into ``mask`` in
+    place."""
+    from laudnet_tpu_torch.ops._build import check
+
+    tp = policy or {}
+    check(lib, lib.lt_gemm_rows(
+        _ptr(a), _ptr(w["weight"]), _ptr(w["bias"]), a.numel() // k, n, k,
+        epi, _ptr(resid), _ptr(rmask), variant, _ptr(out), ln_form,
+        _ptr(ln["weight"]), _ptr(ln["bias"]), ln_eps, _ptr(out2),
+        _ptr(tp.get("weight")), _ptr(tp.get("bias")), _ptr(mask), seq_len,
+        torch.cuda.current_stream(a.device).cuda_stream),
+        "gemm kernel with its row pass")
+    return out, out2
 
 
 def _gemm_s8(lib, a, w, n, k, epi, out, resid=None, rmask=None):
@@ -380,58 +416,97 @@ def _gemm_s8(lib, a, w, n, k, epi, out, resid=None, rmask=None):
     return out
 
 
+def _gemm_s8_rows(lib, a, w, n, k, epi, codes, out=None, resid=None,
+                  rmask=None, ln=None, ln_eps=1e-6):
+    """An s8 product with its row quantiser on a cluster
+    (``lt_gemm_s8_rows``): EPI_PROJ writes x2 (f32) to ``out`` and the
+    codes of LN2(x2) (``ln``) to ``codes`` = (int8 (M, n), f32 (M,));
+    EPI_FC1 writes only the codes of its erf GELU output."""
+    from laudnet_tpu_torch.ops._build import check
+
+    q, qs = a
+    ln = ln or {}
+    check(lib, lib.lt_gemm_s8_rows(
+        _ptr(q), _ptr(qs), _ptr(w["weight_q"]), _ptr(w["scale"]),
+        _ptr(w["bias"]), q.numel() // k, n, k, epi, _ptr(resid), _ptr(rmask),
+        _ptr(out), _ptr(ln.get("weight")), _ptr(ln.get("bias")), ln_eps,
+        _ptr(codes[0]), _ptr(codes[1]),
+        torch.cuda.current_stream(q.device).cuda_stream),
+        "s8 gemm kernel with its row quantiser")
+    return codes
+
+
 def _layer_cuda(lib, x, kmask, rmask, p, num_heads, ln_eps, fast_math,
-                policy=None, head_gate=None, variant=None):
-    """Seven launches: LN1 (+ the token gate, updating ``kmask`` in place;
-    B2 passes one buffer as both masks), qkv, attention, proj, LN2, fc1,
-    fc2. ``kmask`` and ``rmask`` are contiguous (B, L) f32, ``head_gate``
-    contiguous (B, H) f32 or None; ``variant`` as `_layer_plain`."""
+                policy=None, head_gate=None, variant=None, h1=None, nxt=None,
+                fuse=True):
+    """One bf16 layer. Six launches: LN1 (+ the token gate, updating
+    ``kmask`` in place; B2 passes one buffer as both masks), qkv,
+    attention, proj with LN2 in its epilogue, fc1, fc2. Inside a segment
+    (``nxt``: the next layer's params) fc2's epilogue also computes the
+    next layer's token gate and LN1, and that layer takes them as ``h1``
+    and launches five. Widths the row epilogues do not take (`row_cluster`)
+    and ``fuse=False`` (the launches of earlier builds) run LN2 and LN1 as
+    launches of their own. ``kmask`` and ``rmask`` are contiguous (B, L)
+    f32, ``head_gate`` contiguous (B, H) f32 or None; ``variant`` as
+    `_layer_plain`. Returns (out, the next layer's h1 or None)."""
     from laudnet_tpu_torch.ops._build import check
 
     b, l, d = x.shape
     m = b * l
     hidden = p["fc1"]["weight"].shape[0]
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    ln_form, gemm_var, softmax = (variant or (FAST if fast_math
-                                              else EXACT)).codes()
+    v = variant or (FAST if fast_math else EXACT)
+    ln_form, gemm_var, softmax = v.codes()
     bf16 = dict(dtype=torch.bfloat16, device=x.device)
 
-    def ln(inp, is_f32, w, tp_w=None, tp_b=None, mask=None):
+    def ln(inp, is_f32, w, tp=None, mask=None):
         out = torch.empty((m, d), **bf16)
+        tp = tp or {}
         check(lib, lib.lt_layernorm(
             _ptr(inp), is_f32, _ptr(out), _ptr(w["weight"]), _ptr(w["bias"]),
-            m, d, ln_eps, ln_form, _ptr(tp_w), _ptr(tp_b), _ptr(mask), l,
-            stream), "layernorm kernel")
+            m, d, ln_eps, ln_form, _ptr(tp.get("weight")),
+            _ptr(tp.get("bias")), _ptr(mask), l, stream), "layernorm kernel")
         return out
 
     def gemm(a, w, n, k, epi, out, resid=None):
         return _gemm(lib, a, w, n, k, epi, out, resid, rmask, gemm_var)
 
-    if policy is None:
-        h1 = ln(x, 0, p["ln1"])
-    else:
-        h1 = ln(x, 0, p["ln1"], policy["weight"], policy["bias"], kmask)
+    if h1 is None:
+        h1 = ln(x, 0, p["ln1"], policy, kmask if policy else None)
     qkv = gemm(h1, p["qkv"], 3 * d, d, EPI_QKV, torch.empty((m, 3 * d), **bf16))
     attn = torch.empty((m, d), **bf16)
     check(lib, lib.lt_attention(_ptr(qkv), _ptr(kmask), _ptr(head_gate),
                                 _ptr(attn), b, l, num_heads, DH ** -0.5,
                                 softmax, stream), "attention kernel")
-    x2 = gemm(attn, p["proj"], d, d, EPI_PROJ,
-              torch.empty((m, d), dtype=torch.float32, device=x.device),
-              resid=x)
-    h2 = ln(x2, 1, p["ln2"])
-    u = gemm(h2, p["fc1"], hidden, d, EPI_FC1,
-             torch.empty((m, hidden), **bf16))
-    return gemm(u, p["fc2"], d, hidden, EPI_FC2,
-                torch.empty((b, l, d), **bf16), resid=x2)
+    x2 = torch.empty((m, d), dtype=torch.float32, device=x.device)
+    wide = v.row_mask and not v.bf16_residual and v.ln != "scale"
+    if fuse and row_cluster(d, wide=wide):
+        h2 = _gemm_rows(lib, attn, p["proj"], d, d, EPI_PROJ, x2,
+                        torch.empty((m, d), **bf16), x, rmask, p["ln2"],
+                        ln_eps, gemm_var, ln_form)[1]
+    else:
+        h2 = ln(gemm(attn, p["proj"], d, d, EPI_PROJ, x2, resid=x), 1,
+                p["ln2"])
+    u = gemm(h2, p["fc1"], hidden, d, EPI_FC1, torch.empty((m, hidden), **bf16))
+    out = torch.empty((b, l, d), **bf16)
+    if nxt is not None and fuse and row_cluster(d):
+        return _gemm_rows(lib, u, p["fc2"], d, hidden, EPI_FC2, out,
+                          torch.empty((m, d), **bf16), x2, rmask, nxt["ln1"],
+                          ln_eps, gemm_var, ln_form, nxt.get("token_policy"),
+                          kmask, l)
+    return gemm(u, p["fc2"], d, hidden, EPI_FC2, out, resid=x2), None
 
 
 def _layer_int8_cuda(lib, x, kmask, rmask, p, num_heads, ln_eps,
-                     head_gate=None):
-    """Nine launches: LN1 + row quantise, s8 qkv, attention (exact form,
-    head gate), row quantise, s8 proj (+residual, f32 x2), LN2 + row
-    quantise (of the unrounded x2), s8 fc1 (+erf GELU, f32), row quantise,
-    s8 fc2 (+residual). Masks and gate as `_layer_cuda` takes them."""
+                     head_gate=None, fuse=True):
+    """Seven launches: LN1 + row quantise, s8 qkv, attention (exact form,
+    head gate), row quantise, s8 proj (+residual, f32 x2) with LN2 + row
+    quantise of the unrounded x2 in its epilogue, s8 fc1 with erf GELU +
+    row quantise in its epilogue (u never leaves the SM), s8 fc2
+    (+residual). Widths the row epilogues do not take (`row_cluster`) and
+    ``fuse=False`` (the launches of earlier builds) run the LN2 quantiser
+    and fc1's f32 output with its quantiser as launches of their own: nine.
+    Masks and gate as `_layer_cuda` takes them."""
     from laudnet_tpu_torch.ops._build import check
 
     b, l, d = x.shape
@@ -467,11 +542,20 @@ def _layer_int8_cuda(lib, x, kmask, rmask, p, num_heads, ln_eps,
     check(lib, lib.lt_attention(_ptr(qkv), _ptr(kmask), _ptr(head_gate),
                                 _ptr(attn), b, l, num_heads, DH ** -0.5, 0,
                                 stream), "attention kernel")
-    x2 = gemm(rowquant(attn, 0, d), p["proj"], d, d, EPI_PROJ,
-              torch.empty((m, d), dtype=torch.float32, device=dev), resid=x)
-    u = gemm(ln_quant(x2, 1, p["ln2"]), p["fc1"], hidden, d, EPI_FC1,
-             torch.empty((m, hidden), dtype=torch.float32, device=dev))
-    return gemm(rowquant(u, 1, hidden), p["fc2"], d, hidden, EPI_FC2,
+    x2 = torch.empty((m, d), dtype=torch.float32, device=dev)
+    if fuse and row_cluster(d):
+        h2 = _gemm_s8_rows(lib, rowquant(attn, 0, d), p["proj"], d, d,
+                           EPI_PROJ, codes(d), x2, x, rmask, p["ln2"], ln_eps)
+    else:
+        h2 = ln_quant(gemm(rowquant(attn, 0, d), p["proj"], d, d, EPI_PROJ,
+                           x2, resid=x), 1, p["ln2"])
+    if fuse and row_cluster(hidden, wide=False, fc1=True):
+        u = _gemm_s8_rows(lib, h2, p["fc1"], hidden, d, EPI_FC1,
+                          codes(hidden))
+    else:
+        u = rowquant(gemm(h2, p["fc1"], hidden, d, EPI_FC1, torch.empty(
+            (m, hidden), dtype=torch.float32, device=dev)), 1, hidden)
+    return gemm(u, p["fc2"], d, hidden, EPI_FC2,
                 torch.empty((b, l, d), dtype=torch.bfloat16, device=dev),
                 resid=x2)
 
@@ -509,9 +593,10 @@ def fused_vit_block(x, key_mask, row_mask, params, *, num_heads: int,
             and l > MAX_LEN_ABLATION):
         raise ValueError(f"the {variant.softmax!r} softmax ablation takes "
                          f"L <= {MAX_LEN_ABLATION}, got L={l}")
-    out = _layer_cuda(library(), x, _f32(key_mask.reshape(b, l)),
-                      _f32(row_mask.reshape(b, l)), params, num_heads, ln_eps,
-                      fast_math, head_gate=_f32(head_gate), variant=variant)
+    out, _ = _layer_cuda(library(), x, _f32(key_mask.reshape(b, l)),
+                         _f32(row_mask.reshape(b, l)), params, num_heads,
+                         ln_eps, fast_math, head_gate=_f32(head_gate),
+                         variant=variant)
     if variant is None:
         fused_vit_block.launches += 1
     else:
@@ -560,9 +645,10 @@ def fused_vit_segment(x, token_mask, params_list, *, num_heads: int,
     ``token_policy`` computes its eval gate from its entry x (``logit0 >=
     logit1`` on bf16-rounded logits, class token pinned) and composes it
     into the running mask before its attention. Returns ``(out,
-    token_mask_out)``. On CUDA each layer's gate is fused into its LN1
-    launch; x is rounded to x's dtype after every layer
-    (`vit_block.py:617`)."""
+    token_mask_out)``. On CUDA the first layer's gate runs in its LN1
+    launch and every later layer's gate and LN1 in the epilogue of the
+    fc2 before it: 1 + 5n launches for n layers (`_layer_cuda`); x is
+    rounded to x's dtype after every layer (`vit_block.py:617`)."""
     if not _route(x):
         return fused_vit_segment_reference(x, token_mask, params_list,
                                            num_heads=num_heads,
@@ -571,12 +657,24 @@ def fused_vit_segment(x, token_mask, params_list, *, num_heads: int,
     from laudnet_tpu_torch.ops._build import library
 
     _check_cuda(x, (token_mask,), params_list, num_heads)
-    lib = library()
-    mask = token_mask.to(torch.float32, copy=True).contiguous()
-    for p in params_list:
-        x = _layer_cuda(lib, x, mask, mask, p, num_heads, ln_eps, fast_math,
-                        policy=p.get("token_policy"))
+    out = _segment_cuda(library(), x, token_mask, params_list, num_heads,
+                        ln_eps, fast_math)
     fused_vit_segment.launches += 1
+    return out
+
+
+def _segment_cuda(lib, x, token_mask, params_list, num_heads, ln_eps,
+                  fast_math, fuse=True):
+    """B2's launches on ``lib``: each layer's h1 (with its token gate)
+    comes from the fc2 before it where the row epilogues take the width
+    (`_layer_cuda`). Returns ``(out, token_mask_out)``."""
+    mask = token_mask.to(torch.float32, copy=True).contiguous()
+    h1 = None
+    for i, p in enumerate(params_list):
+        nxt = params_list[i + 1] if i + 1 < len(params_list) else None
+        x, h1 = _layer_cuda(lib, x, mask, mask, p, num_heads, ln_eps,
+                            fast_math, policy=p.get("token_policy"), h1=h1,
+                            nxt=nxt, fuse=fuse)
     return x, mask
 
 
@@ -586,15 +684,49 @@ fused_vit_segment.launches = 0
 # --- one product alone -------------------------------------------------------
 
 GEMM_EPILOGUES = ("qkv", "proj", "fc1", "fc2")
+# the products with a row pass in their epilogue (`row_cluster`'s widths),
+# each with its product: proj + LN2 (bf16: h2; s8: LN2's codes), fc2 + the
+# next layer's token gate and LN1 (bf16, inside a segment), fc1 + GELU +
+# row quantiser (s8)
+ROW_PRODUCT = {"proj_ln": "proj", "fc2_ln": "fc2", "fc1_q": "fc1"}
+ROW_EPILOGUES = tuple(ROW_PRODUCT)
+
+
+def _flat_gate(out, policy, seq_len):
+    """`token_gate` of (M, D) rows, images of ``seq_len`` rows."""
+    g = token_gate(out.reshape(-1, seq_len, out.shape[-1]), policy["weight"],
+                   policy["bias"])
+    return g.reshape(-1)
 
 
 def block_gemm_reference(a, w, epilogue, *, resid=None, row_mask=None,
-                         variant=None, a_scale=None):
+                         variant=None, a_scale=None, ln=None, policy=None,
+                         seq_len=None, ln_eps=1e-6):
     """Plain PyTorch version of `block_gemm`, on any device: the epilogue's
     arithmetic as `_layer_plain` (bf16) and `fused_vit_block_int8_reference`
-    (s8) apply it, rounded at the same points as the kernel."""
+    (s8) apply it, rounded at the same points as the kernel; the row
+    epilogues add the row pass that follows the product there."""
     v = variant or EXACT
     mask = row_mask.float()[:, None] if row_mask is not None else None
+    if epilogue in ROW_EPILOGUES:
+        y = block_gemm_reference(a, w, ROW_PRODUCT[epilogue], resid=resid,
+                                 row_mask=row_mask, variant=variant,
+                                 a_scale=a_scale)
+        if a_scale is not None:
+            if epilogue == "fc1_q":
+                q, qs = quantize_rows(y)
+                return q, qs.reshape(-1)
+            q, qs = quantize_rows(layer_norm(y, ln["weight"], ln["bias"],
+                                             ln_eps))
+            return y, q, qs.reshape(-1)
+        h = _LN[v.ln](y.to(torch.bfloat16), ln["weight"], ln["bias"],
+                      ln_eps).to(torch.bfloat16)
+        if epilogue == "proj_ln":
+            return y, h
+        keep = row_mask.float()
+        if policy is not None:
+            keep = keep * _flat_gate(y, policy, seq_len)
+        return y, h, keep
     if a_scale is None:
         y = _mm(a, w["weight"], w["bias"])
     else:
@@ -614,7 +746,8 @@ def block_gemm_reference(a, w, epilogue, *, resid=None, row_mask=None,
 
 
 def block_gemm(a, w, epilogue, *, resid=None, row_mask=None, variant=None,
-               a_scale=None):
+               a_scale=None, ln=None, policy=None, seq_len=None,
+               ln_eps=1e-6):
     """One of a layer's four weight products with its epilogue, as B1, B2
     and P1 (bf16) or B6 (s8) launch it: the GEMM core of
     ``csrc/gemm_sm90.cuh``.
@@ -626,15 +759,26 @@ def block_gemm(a, w, epilogue, *, resid=None, row_mask=None, variant=None,
     row_mask (resid bf16 (M, N)); 'fc1' -> bf16(GELU(acc + b)) (s8: f32 erf
     GELU); 'fc2' -> bf16(resid + (acc + b) * row_mask) (resid f32 (M, N)).
     ``row_mask``: (M,) f32, for proj and fc2. ``variant`` (bf16 only, a
-    `BlockVariant`): its fc1 activation, row mask and proj residual. CPU
-    tensors run `block_gemm_reference`; CUDA tensors launch the kernel,
-    counted in ``block_gemm.launches``."""
-    if epilogue not in GEMM_EPILOGUES:
-        raise ValueError(f"epilogue must be one of {GEMM_EPILOGUES}")
+    `BlockVariant`): its fc1 activation, row mask and proj residual.
+
+    The row epilogues (`ROW_EPILOGUES`, at the widths of `row_cluster`:
+    a cluster of blocks holds whole rows) run the next row pass too, with
+    ``ln`` {weight, bias} (N,) bf16 and ``ln_eps``: 'proj_ln' -> (x2, h2 =
+    bf16(LN(bf16(x2)))) in the variant's LayerNorm form, s8 -> (x2, codes,
+    scales) of LN(x2) unrounded; 'fc2_ln' (bf16) -> (out, h1 = bf16(LN(out)),
+    the row mask times the token gate of ``policy`` {weight (2, N), bias
+    (2,)} or None on out, the first of every ``seq_len`` rows kept);
+    'fc1_q' (s8) -> (codes, scales) of the erf GELU output. CPU tensors run
+    `block_gemm_reference`; CUDA tensors launch the kernel, counted in
+    ``block_gemm.launches``."""
+    if epilogue not in GEMM_EPILOGUES + ROW_EPILOGUES:
+        raise ValueError(f"epilogue must be one of "
+                         f"{GEMM_EPILOGUES + ROW_EPILOGUES}")
+    kw = dict(resid=resid, row_mask=row_mask, variant=variant,
+              a_scale=a_scale)
+    rows = dict(ln=ln, policy=policy, seq_len=seq_len, ln_eps=ln_eps)
     if not _route(a):
-        return block_gemm_reference(a, w, epilogue, resid=resid,
-                                    row_mask=row_mask, variant=variant,
-                                    a_scale=a_scale)
+        return block_gemm_reference(a, w, epilogue, **kw, **rows)
     from laudnet_tpu_torch.ops._build import library
 
     s8 = a_scale is not None
@@ -650,31 +794,71 @@ def block_gemm(a, w, epilogue, *, resid=None, row_mask=None, variant=None,
     if k % (16 if s8 else 8) or n % 8:
         raise ValueError(f"the GEMM kernel needs rows of 16-byte multiples "
                          f"and N % 8 == 0: K={k}, N={n}")
-    epi = GEMM_EPILOGUES.index(epilogue)
+    epi = GEMM_EPILOGUES.index(ROW_PRODUCT.get(epilogue, epilogue))
     if epi in (EPI_PROJ, EPI_FC2):
         rdt = torch.bfloat16 if epi == EPI_PROJ else torch.float32
         if (resid is None or row_mask is None or resid.dtype != rdt
                 or tuple(resid.shape) != (m, n) or row_mask.numel() != m):
             raise ValueError(f"{epilogue} takes resid {rdt} ({m}, {n}) and "
                              f"row_mask ({m},)")
+    if epilogue in ROW_EPILOGUES:
+        v = variant or EXACT
+        if (epilogue == "fc1_q" and not s8) or (epilogue == "fc2_ln" and s8):
+            raise TypeError(f"{epilogue} takes "
+                            f"{'bf16' if s8 else 's8'} operands")
+        wide = s8 or (v.row_mask and not v.bf16_residual and v.ln != "scale")
+        if not row_cluster(n, wide=wide, fc1=epilogue == "fc1_q"):
+            raise ValueError(f"{epilogue}: no cluster of the GEMM core holds "
+                             f"rows of N={n} (row_cluster)")
+        if epilogue != "fc1_q" and (ln is None or any(
+                t.shape != (n,) or t.dtype != torch.bfloat16
+                for t in (ln["weight"], ln["bias"]))):
+            raise ValueError(f"{epilogue} takes ln weight and bias bf16 "
+                             f"({n},)")
+        if epilogue == "fc2_ln" and (
+                seq_len is None or m % seq_len or (policy is not None and (
+                    tuple(policy["weight"].shape) != (2, n)
+                    or policy["weight"].dtype != torch.bfloat16
+                    or policy["bias"].dtype != torch.bfloat16))):
+            raise ValueError("fc2_ln takes seq_len dividing M and a bf16 "
+                             f"policy (2, {n})")
     tensors = [a, weight, w["bias"], resid, row_mask, a_scale,
                w.get("scale")]
+    for sub in (ln, policy):
+        if sub is not None and epilogue in ROW_EPILOGUES:
+            tensors += [sub["weight"], sub["bias"]]
     for t in tensors:
         if t is not None and (t.device != a.device or not t.is_contiguous()):
             raise ValueError("block_gemm takes contiguous tensors on one "
                              "device")
     f32_out = epi == EPI_PROJ or (s8 and epi == EPI_FC1)
-    out = torch.empty((m, n), device=a.device,
-                      dtype=torch.float32 if f32_out else torch.bfloat16)
+    out = None if epilogue == "fc1_q" else torch.empty(
+        (m, n), device=a.device,
+        dtype=torch.float32 if f32_out else torch.bfloat16)
     rmask = None if row_mask is None else _f32(row_mask)
     lib = library()
-    if s8:
-        _gemm_s8(lib, (a, a_scale), w, n, k, epi, out, resid, rmask)
+    if epilogue in ROW_EPILOGUES:
+        ln_form, var, _ = (variant or EXACT).codes()
+        if s8:
+            codes = (torch.empty((m, n), dtype=torch.int8, device=a.device),
+                     torch.empty((m,), dtype=torch.float32, device=a.device))
+            _gemm_s8_rows(lib, (a, a_scale), w, n, k, epi, codes, out, resid,
+                          rmask, ln, ln_eps)
+            result = codes if epi == EPI_FC1 else (out, *codes)
+        else:
+            h = torch.empty((m, n), dtype=torch.bfloat16, device=a.device)
+            mask = row_mask.to(torch.float32, copy=True).contiguous()
+            _gemm_rows(lib, a, w, n, k, epi, out, h, resid,
+                       rmask if epi == EPI_PROJ else mask, ln, ln_eps, var,
+                       ln_form, policy, mask, seq_len or 1)
+            result = (out, h) if epi == EPI_PROJ else (out, h, mask)
+    elif s8:
+        result = _gemm_s8(lib, (a, a_scale), w, n, k, epi, out, resid, rmask)
     else:
-        _gemm(lib, a, w, n, k, epi, out, resid, rmask,
-              (variant or EXACT).codes()[1])
+        result = _gemm(lib, a, w, n, k, epi, out, resid, rmask,
+                       (variant or EXACT).codes()[1])
     block_gemm.launches += 1
-    return out
+    return result
 
 
 block_gemm.launches = 0

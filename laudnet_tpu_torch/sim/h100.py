@@ -24,7 +24,8 @@ the card one after the other. So:
   int8 pricing divides ``compute_latency`` by ``s8_conv_mult``: the int8
   CNN's quantising passes slow with its convolutions.
 
-ViT forms (`infer/fused_vit.py`): per layer B1's 7 launches (B6's 9), with
+ViT forms (`infer/fused_vit.py`): per layer B1's 6 launches (5 inside a
+B2 segment, B6's 7: `block_layer`), with
 the four products at the GEMM core's measured fraction of peak, their rows
 and columns padded to its 128 x 192 (or 224) tile (`tiles.ceil_eff`: what
 makes 128 tokens cheaper than 137) and their tiles spread in whole waves
@@ -201,27 +202,32 @@ class H100Predictor:
                         op="fused_attention")
 
     def block_layer(self, l: int, dim: int, heads: int, mlp_ratio: float,
-                    int8: bool = False) -> SimulationReport:
-        """One B1 layer (7 launches) or B6 layer (9)."""
+                    int8: bool = False, ln1: bool = True) -> SimulationReport:
+        """One B1 layer on the GEMM core's row epilogues: 6 launches (LN1,
+        qkv, attention, proj with LN2 in its epilogue, fc1, fc2); inside a
+        B2 segment (``ln1`` off) 5, its LN1 and token gate written by the
+        fc2 before it (priced here, as that fc2's extra output). B6: 7
+        (LN1 + row quantise, qkv, attention, row quantise, proj with LN2's
+        quantiser, fc1 with its row quantiser, fc2). The row passes in the
+        epilogues add their outputs' bytes to the product's."""
         s = self.spec
         rows = s.batch_size * l
         hidden = int(dim * mlp_ratio)
-        ln_bytes = rows * dim * (2 + (1 if int8 else 2)) / s.block_ln_frac
-        ln = self._op(0.0, ln_bytes, 1.0, op="layernorm")
-        # x2 is f32: LN2 reads 4 bytes a value, proj and fc2 touch it
-        ln2 = self._op(0.0, ln_bytes + rows * dim * 2 / s.block_ln_frac, 1.0,
-                       op="layernorm")
-        rep = (ln + self.block_gemm(rows, dim, 3 * dim, int8)
+        act = 1 if int8 else 2  # bytes of a value the next product reads
+        rep = (self.block_gemm(rows, dim, 3 * dim, int8)
                + self.attention(l, dim, heads)
-               + self.block_gemm(rows, dim, dim, int8, out_bytes=4) + ln2
-               + self.block_gemm(rows, dim, hidden, int8,
-                                 out_bytes=4 if int8 else 2)
+               + self.block_gemm(rows, dim, dim, int8, out_bytes=4 + act)
+               + self.block_gemm(rows, dim, hidden, int8, out_bytes=act)
                + self.block_gemm(rows, hidden, dim, int8))
+        if ln1:
+            rep = rep + self._op(0.0, rows * dim * (2 + act) / s.block_ln_frac,
+                                 1.0, op="layernorm")
+        else:
+            rep = rep + self._op(0.0, rows * dim * 2, 1.0, 0, op="epilogue")
         if int8:
-            # two more row-quantise passes: the attention output (bf16) and
-            # the f32 GELU output
-            rep = rep + self._op(0.0, rows * (3 * dim + 5 * hidden)
-                                 / s.block_ln_frac, 1.0, 2, op="rowquant")
+            # the row quantiser of the attention output (bf16 in, s8 out)
+            rep = rep + self._op(0.0, rows * dim * 3 / s.block_ln_frac, 1.0,
+                                 op="rowquant")
         return rep
 
     def gate(self, l: int, dim: int, outputs: int = 2) -> SimulationReport:
@@ -305,8 +311,8 @@ class H100Predictor:
             if fused_block:
                 # B2 segments (`build_fused_vit`) on the bf16 selection
                 # paths, one wrapper call each, up to 5 layers and cut at
-                # gathers, the token gate eager where one starts and fused
-                # into LN1 inside; a wrapper call every layer otherwise,
+                # gathers, the token gate eager where one starts and in
+                # the fc2 before it inside; a wrapper call every layer otherwise,
                 # and on the W8A8 engine (no segments) an eager gate too
                 segmented = mode in ("token", "mask") and not int8
                 start = not segmented or gathered or run == 5
@@ -318,8 +324,8 @@ class H100Predictor:
                     total = total + self.gate(l, dim)
                 if mode == "head":
                     total = total + self.gate(1, dim, 2 * num_heads)
-                total = total + self.block_layer(l, dim, num_heads, mlp_ratio,
-                                                 int8=int8)
+                total = total + self.block_layer(
+                    l, dim, num_heads, mlp_ratio, int8=int8, ln1=start)
             else:
                 if mode in ("token", "mask") and not gathered:
                     total = total + self.gate(l, dim)

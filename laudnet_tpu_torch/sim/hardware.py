@@ -84,52 +84,48 @@ class HopperSpec:
 
 HOPPER_PRESETS = {
     # Measured on an NVIDIA H100 80GB HBM3 at a 700.00 W power limit
-    # (nvidia-smi --query-gpu=name,power.limit --format=csv,noheader) by
-    # `python3 chip_smoke.py probes`. The three GEMM fields come from a run
-    # on the wgmma + TMA core (`csrc/gemm_sm90.cuh`): probe_block_budget
-    # --stages, B1's four bf16 products 321.19 TFLOP/s and B6's four s8
-    # products 301.69 TOP/s at DeiT-S bs128 (their FLOP over their summed
-    # device time); probe_int8, P2 1266.47 TOP/s at n = 4096
-    # (torch._int_mm 967.50 at 8192^3 in the same run). The other fields
-    # are an earlier run's (on the mma.sync GEMM it replaced): B1's
-    # attention 85.70 TFLOP/s and its LayerNorm 1,789.57 GB/s; torch.matmul
-    # 806.51 TFLOP/s; over ResNet-50's convolutions at bs128: cuDNN bf16
-    # 270.52 TFLOP/s, QuantConv 11.84, the export's 13.73 (the later run
-    # read 84.32, 1,761.64, 787.70, 270.69, 11.51, 12.87: inside the 5-25%
-    # spread between calls, so they stay); and two runs of `python -m
-    # laudnet_tpu_torch.tools.probe_host` in one call, their mean (the
-    # eager graph 38.54 / 30.73 us of host an operation; device gap 1.995 /
-    # 1.996 us; host read 15.42 / 19.69 us; eager pass 0.8752 / 0.8772 and
-    # gather/scatter 0.1167 / 0.1188 of 3.35 TB/s). ``host_launch`` and
-    # ``host_call`` come from two later runs of probe_host in one call:
-    # 23.59 / 29.63 us per launch of the block wrappers and 80.08 / 43.87
-    # us per call. Priced as one eager in-place add a launch (10.94 / 10.63
-    # us) and nothing a call, the W8A8 engine's forms (a wrapper call and
-    # an eager gate every layer) came out below the dense bf16 engine they
-    # measure up to 33% above once the GEMM core made the kernels faster.
+    # (nvidia-smi --query-gpu=name,power.limit --format=csv,noheader) after
+    # the row epilogues moved LN2, a segment's next LN1 and token gate and
+    # B6's row quantisers into the GEMM core's epilogues. One run of
+    # `python3 chip_smoke.py probes`: probe_block_budget --stages, B1's
+    # four bf16 products 310.04 TFLOP/s (proj with LN2 in its epilogue),
+    # B6's four s8 products 219.02 TOP/s (proj with LN2's quantiser, fc1
+    # with its row quantiser: the f32 GELU output is no longer stored), B1's
+    # attention launch 95.22 TFLOP/s on its padded 64 x 16 tiles
+    # (attention.cu's forward at L = 197 since the split of lt_attention),
+    # its one LayerNorm launch 1,590.82 GB/s; probe_int8, P2 1,250.66 TOP/s
+    # at n = 4096, torch.matmul 792.40 TFLOP/s, over ResNet-50's
+    # convolutions at bs128 cuDNN bf16 273.75 TFLOP/s, QuantConv 11.86, the
+    # export's 13.45. Two runs of `python -m
+    # laudnet_tpu_torch.tools.probe_host` in one later call, their mean:
+    # 18.47 / 16.25 us per launch of the block wrappers and 30.56 / 89.42
+    # per call (each the least of five tries: one try gave a negative cost
+    # per call), the eager graph 18.96 / 25.67 us of host an operation,
+    # device gap 1.955 / 1.963 us, host read 14.81 / 13.84 us, eager pass
+    # 0.8866 / 0.8810 and gather/scatter 0.1184 / 0.1200 of 3.35 TB/s.
     "h100": HopperSpec(
         "h100",
-        block_gemm_frac=321.19 / 989,
-        attention_rate=85.70e12,
+        block_gemm_frac=310.04 / 989,
+        attention_rate=95.22e12,
         # B4 at DeiT-S L = 197, batch 128, head mask: 4 * 128 * 6 * 197^2 *
         # 64 FLOP in 0.1228 ms (bf16) and 0.8384 ms (f32), both from one
         # run of `python3 chip_smoke.py kernels` on the same card (chains
         # of ten calls, in turns with PyTorch's attention)
         fused_attention_rate=7.630159872e9 / 0.1228e-3,
         fused_attention_rate_f32=7.630159872e9 / 0.8384e-3,
-        block_ln_frac=1789.57 / 3350,
-        block_s8_gemm_frac=301.69 / 1979,
-        s8_gemm_frac=1266.47 / 1979,
-        matmul_rate=806.51e12,
-        conv_rate=270.52e12,
-        qconv_rate=11.84e12,
-        int_conv_rate=13.73e12,
-        eager_bw_frac=(0.8752 + 0.8772) / 2,
-        index_bw_frac=(0.1167 + 0.1188) / 2,
-        host_launch=(23.59 + 29.63) / 2 * 1e-6,
-        host_call=(80.08 + 43.87) / 2 * 1e-6,
-        eager_host_launch=(38.54 + 30.73) / 2 * 1e-6,
-        device_launch=(1.995 + 1.996) / 2 * 1e-6,
-        host_sync=(15.42 + 19.69) / 2 * 1e-6,
+        block_ln_frac=1590.82 / 3350,
+        block_s8_gemm_frac=219.02 / 1979,
+        s8_gemm_frac=1250.66 / 1979,
+        matmul_rate=792.40e12,
+        conv_rate=273.75e12,
+        qconv_rate=11.86e12,
+        int_conv_rate=13.45e12,
+        eager_bw_frac=(0.8866 + 0.8810) / 2,
+        index_bw_frac=(0.1184 + 0.1200) / 2,
+        host_launch=(18.47 + 16.25) / 2 * 1e-6,
+        host_call=(30.56 + 89.42) / 2 * 1e-6,
+        eager_host_launch=(18.96 + 25.67) / 2 * 1e-6,
+        device_launch=(1.955 + 1.963) / 2 * 1e-6,
+        host_sync=(14.81 + 13.84) / 2 * 1e-6,
     ),
 }

@@ -20,7 +20,8 @@ probe:
   the shipped fast-math body;
 * ``--combos``: full, tanh_gelu;
 * ``--stages``: where B1's (fast_math) and B6's layer time goes, by kernel
-  (`torch.profiler`), with each product's achieved rate: the terms
+  (`torch.profiler`), with each product's achieved rate (a product with a
+  row pass in its epilogue counted as its product): the terms
   `sim/hardware.py::HopperSpec` pins for the latency model.
 
 Modes of the JAX probe that are lane tricks of the TPU's 128-wide vector
@@ -165,9 +166,12 @@ def run(modes, device="cuda", chain=20, repeats=3):
 
 
 # the product each GEMM epilogue computes (csrc/vit_block.cu: EPI_*), as
-# (K, N) at DeiT-S
+# (K, N) at DeiT-S, and each row epilogue's (RowKind: proj with LN2, fc2
+# with the next layer's LN1, the s8 proj with LN2's quantiser, the s8 fc1
+# with its row quantiser)
 _GEMMS = {0: ("qkv", D, 3 * D), 1: ("proj", D, D), 2: ("fc1", D, HIDDEN),
           3: ("fc2", HIDDEN, D)}
+_ROW_GEMMS = {0: _GEMMS[1], 1: _GEMMS[3], 2: _GEMMS[1], 3: _GEMMS[2]}
 
 
 def stages(device="cuda", layers=10):
@@ -207,15 +211,18 @@ def stages(device="cuda", layers=10):
                 continue
             ms = e.device_time_total / layers / 1e3
             key = e.key
-            if "BlockEpilogue<" in key:  # csrc/gemm_sm90.cuh's kernel
-                epi = int(key.split("BlockEpilogue<")[1].split(",")[0])
-                what, k, n = _GEMMS[epi]
+            kinds = (("BlockEpilogue<", _GEMMS), ("RowEpilogue<", _ROW_GEMMS))
+            tag = next((t for t in kinds if t[0] in key), None)
+            if tag is not None:  # csrc/gemm_sm90.cuh's kernel
+                epi = int(key.split(tag[0])[1].split(",")[0].split(">")[0])
+                what, k, n = tag[1][epi]
                 flops = 2.0 * rows * k * n
                 gemm_flops += flops
                 gemm_ms += ms
                 out[f"{name}_{what}_ms"] = ms
                 out[f"{name}_{what}_tflops"] = flops / ms / 1e9
-            elif "attention_kernel<" in key:
+            elif "attention_kernel<" in key or "attn_fwd_bf16<" in key:
+                # lt_attention's launch, either kernel (by L and form)
                 out[f"{name}_attention_ms"] = ms
                 lq, lk = -(-L // 64) * 64, -(-L // 16) * 16
                 out[f"{name}_attention_tflops"] = (
@@ -225,8 +232,9 @@ def stages(device="cuda", layers=10):
                 out[f"{name}_{tag}_ms"] = out.get(f"{name}_{tag}_ms", 0) + ms
         out[f"{name}_gemm_tflops"] = gemm_flops / gemm_ms / 1e9
         out[f"{name}_layer_ms"] = chain_ms(layer, 20)
-    # B1's two LayerNorms move x (bf16) and x2 (f32) in, bf16 out
-    out["b1_layernorm_gbps"] = rows * D * (2 + 2 + 4 + 2) / (
+    # B1's LayerNorm launch (LN1: LN2 runs in proj's epilogue) moves x
+    # (bf16) in and bf16 out
+    out["b1_layernorm_gbps"] = rows * D * (2 + 2) / (
         out["b1_layernorm_ms"] * 1e-3) / 1e9
     for k, v in out.items():
         print(f"{k:>24}: {v:.4f}")

@@ -138,9 +138,34 @@ def resnet():
     return model, variables, x
 
 
-def test_resnet_engine_static_export_matches_jax(resnet):
+class _JittedLAUDResNet(jlr.LAUDResNet):
+    """The JAX model with its ``apply`` jitted (once per argument
+    structure): the JAX engine's calibration calls it eagerly, op by op,
+    which costs a compile per operation on the CPU."""
+
+    def apply(self, variables, *args, **kwargs):
+        fn = _JITTED_APPLY.setdefault(self, jax.jit(
+            super().apply, static_argnames=("training", "method",
+                                            "capture_intermediates")))
+        return fn(variables, *args, **kwargs)
+
+
+_JITTED_APPLY = {}
+
+
+def test_resnet_engine_static_export_matches_jax(resnet, monkeypatch):
+    from laudnet_tpu.infer import export_pruned as jex
+
+    build = jex.export_pruned_resnet
+
+    def traced_export(variables, masks, **kw):
+        # the export's weight folding inside the forward the engine jits:
+        # built eagerly, it compiles operation by operation on the CPU
+        return lambda x: build(variables, masks, **kw)(x)
+
+    monkeypatch.setattr(jex, "export_pruned_resnet", traced_export)
     model, variables, x = resnet
-    want_engine = JEngine(jlr.LAUDResNet(**RESNET), variables)
+    want_engine = JEngine(_JittedLAUDResNet(**RESNET), variables)
     want = want_engine.calibrate([jnp.asarray(x)], allow_static_export=True,
                                  fidelity_threshold=0.5)
     engine = ServingEngine(model, predictor=V5eAdapter())

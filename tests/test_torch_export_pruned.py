@@ -71,8 +71,10 @@ def setup():
 
 
 def _jax(variables, masks, x, **kw):
-    return np.asarray(jax.jit(jex.export_pruned_resnet(
-        variables, masks, **JKW, **kw))(jnp.asarray(x)))
+    """JAX's export built and run inside one jitted trace: built eagerly,
+    its weight folding compiles operation by operation."""
+    return np.asarray(jax.jit(lambda v, x: jex.export_pruned_resnet(
+        v, masks, **JKW, **kw)(x))(variables, jnp.asarray(x)))
 
 
 def test_float_export_matches_jax_and_the_model(setup):

@@ -43,8 +43,10 @@ def setup():
     x = np.random.default_rng(0).standard_normal(
         (2, 64, 64, 3)).astype(np.float32)
     jmodel = jlv.LAUDViT(head_skip=False, layer_skip=False, **GEOM)
-    v = jax.jit(lambda: jmodel.init({"params": jax.random.PRNGKey(0)},
-                                    jnp.asarray(x), 1.0, training=False))()
+    # lazy_init: the values of init, without compiling the forward
+    v = jax.jit(lambda: jmodel.lazy_init(
+        {"params": jax.random.PRNGKey(0)},
+        jax.ShapeDtypeStruct(x.shape, jnp.float32), 1.0, training=False))()
     params = jax.tree_util.tree_map(np.array, v["params"])
     params = {k: dict(v) if hasattr(v, "items") else v
               for k, v in params.items()}
@@ -185,8 +187,9 @@ def test_later_slices_raise(setup, kw):
 # for what a flipped code costs); the seeds here are free of such ties.
 
 def _randomised_params(jmodel, x, seed, heads=("token_policy", "head_policy")):
-    v = jax.jit(lambda: jmodel.init({"params": jax.random.PRNGKey(seed)},
-                                    jnp.asarray(x), 1.0, training=False))()
+    v = jax.jit(lambda: jmodel.lazy_init(
+        {"params": jax.random.PRNGKey(seed)},
+        jax.ShapeDtypeStruct(x.shape, jnp.float32), 1.0, training=False))()
     params = {k: dict(v) if hasattr(v, "items") else v for k, v in
               jax.tree_util.tree_map(np.array, v["params"]).items()}
     rng = np.random.default_rng(seed)
@@ -330,9 +333,11 @@ def test_t2t_engine_matches_jax_engine(t2t, kw):
     logit error under 5e-2 and equal predictions."""
     x, params, model = t2t
     ekw = dict(kw) if "int8" in kw else dict(kw, fast_math=False)
-    ref = np.asarray(jfv.build_fused_vit(
+    # jitted, as the JAX engine serves it: eagerly its stem and layers
+    # compile operation by operation
+    ref = np.asarray(jax.jit(jfv.build_fused_vit(
         {"params": params}, depth=2, dim=192, num_heads=3, stem="t2t",
-        interpret=True, **ekw)(jnp.asarray(x)))
+        interpret=True, **ekw))(jnp.asarray(x)))
     fwd = tfv.build_fused_vit(model, **ekw)
     out = fwd(torch.from_numpy(x)).numpy()
     if "int8" in kw:

@@ -567,3 +567,172 @@ def test_s8_gemm_refuses_what_it_does_not_take(card):
         s8_gemm.s8_gemm(a, a)  # b not column-major
     with pytest.raises(TypeError):
         s8_gemm.s8_gemm(a.float(), a.t())
+
+
+# --- the row epilogues: the GEMM core's cluster form (a cluster of blocks
+# holds whole rows and exchanges row statistics in distributed shared
+# memory), each fused product against its plain version ---------------------
+
+ROW_CASES = [("proj_ln", False), ("proj_ln", True), ("fc2_ln", False),
+             ("fc1_q", True)]
+SEQ = {"deit_m1000": 100, "t2t_m1000": 100, "deit_b2_l98": 98}
+
+
+def _row_case(g, geom, epilogue, s8, dev):
+    a, w, kw = _gemm_case(g, geom, vit_block.ROW_PRODUCT[epilogue], s8, dev)
+    n = (w["weight_q"] if s8 else w["weight"]).shape[0]
+    if epilogue != "fc1_q":
+        kw["ln"] = {"weight": (1.0 + 0.05 * torch.randn(n, generator=g)).to(
+            dev, torch.bfloat16),
+            "bias": (0.05 * torch.randn(n, generator=g)).to(dev,
+                                                           torch.bfloat16)}
+    if epilogue == "fc2_ln":
+        pw = torch.zeros(2, n)
+        pw[0, 0], pw[1, 0] = 1.0, -1.0  # keep iff feature 0 >= 0: no ties
+        kw["policy"] = {"weight": pw.to(dev, torch.bfloat16),
+                        "bias": torch.zeros(2, dtype=torch.bfloat16,
+                                            device=dev)}
+        kw["seq_len"] = SEQ[geom]
+    return a, w, kw
+
+
+def _close_codes(q, qs, ref_q, ref_qs):
+    """s8 codes of rows whose f32 inputs differ from the plain version's by
+    a summation order (LN2's statistics) or libdevice's erf against
+    PyTorch's: scales within 1e-5 relative, codes within 1 and at most one
+    in a thousand moved."""
+    rel = ((qs - ref_qs).abs() / ref_qs.abs()).max().item()
+    moved = (q.int() - ref_q.int()).abs()
+    assert rel <= 1e-5 and moved.max().item() <= 1
+    assert moved.float().mean().item() <= 1e-3
+
+
+@pytest.mark.parametrize("epilogue,s8", ROW_CASES,
+                         ids=[f"{e}-{'s8' if s else 'bf16'}"
+                              for e, s in ROW_CASES])
+@pytest.mark.parametrize("geom", sorted(SEQ))
+def test_row_epilogue_matches_plain(card, geom, epilogue, s8):
+    g = torch.Generator().manual_seed(len(geom) + len(epilogue) + s8)
+    a, w, kw = _row_case(g, geom, epilogue, s8, card)
+    before = vit_block.block_gemm.launches
+    out = vit_block.block_gemm(a, w, epilogue, **kw)
+    ref = vit_block.block_gemm_reference(a, w, epilogue, **kw)
+    torch.cuda.synchronize()
+    assert vit_block.block_gemm.launches == before + 1
+    if epilogue == "fc1_q":
+        _close_codes(*out, *ref)
+        return
+    x, rx = out[0], ref[0]
+    assert x.dtype == rx.dtype and x.shape == rx.shape
+    assert (x.float() - rx.float()).abs().max().item() <= _tol(rx)
+    if s8:
+        _close_codes(*out[1:], *ref[1:])
+        return
+    assert (out[1].float() - ref[1].float()).abs().max().item() <= _tol(ref[1])
+    if epilogue == "fc2_ln":
+        assert torch.equal(out[2], ref[2])
+        assert 0 < ref[2].sum().item() < ref[2].numel()  # the gate bit
+
+
+@pytest.mark.parametrize("geom", ["deit_m1000", "t2t_m1000"])
+def test_fc1_codes_bit_equal_to_rowquant(card, geom):
+    """The fused s8 fc1 (erf GELU and the row quantiser in its epilogue)
+    against the unfused pair, fc1 with its f32 output and then the
+    row-quantise kernel: a max does not depend on order, so bit for bit."""
+    from laudnet_tpu_torch.ops._build import library
+
+    g = torch.Generator().manual_seed(5)
+    a, w, kw = _row_case(g, geom, "fc1_q", True, card)
+    q, qs = vit_block.block_gemm(a, w, "fc1_q", **kw)
+    u = vit_block.block_gemm(a, w, "fc1", **kw)
+    m, n = u.shape
+    ref_q = torch.empty_like(q)
+    ref_qs = torch.empty_like(qs)
+    lib = library()
+    assert lib.lt_rowquant(u.data_ptr(), 1, ref_q.data_ptr(),
+                           ref_qs.data_ptr(), m, n,
+                           torch.cuda.current_stream().cuda_stream) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(q, ref_q) and torch.equal(qs, ref_qs)
+
+
+def _kernel_launches(fn):
+    """Kernels one call of ``fn`` runs on the card (`torch.profiler`),
+    copies aside. A trace that came back with no device activity at all
+    (the profiler dropped its buffer) is taken again."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type.name == "CUDA"]
+        if events:
+            break
+    return sum(e.count for e in events
+               if not e.key.startswith(("Memcpy", "Memset")))
+
+
+# B1, B2 (3 layers) and B6 at widths the clusters take (DeiT-S, T2T-ViT-19)
+# and at a width they do not (D = 192, hidden 208: the separate launches)
+LAYER_GEOMS = {"deit": (384, 6, 1536, 64), "t2t": (448, 7, 1344, 40),
+               "narrow": (192, 3, 208, 50)}
+
+
+@pytest.mark.parametrize("fast_math", [False, True])
+@pytest.mark.parametrize("geom", sorted(LAYER_GEOMS))
+def test_layers_match_plain_and_launch_as_designed(card, geom, fast_math):
+    d, heads, hidden, l = LAYER_GEOMS[geom]
+    fused = geom != "narrow"
+    g = torch.Generator().manual_seed(d + fast_math)
+    b = 4
+    p = _layer(g, d, hidden, card)
+    seg = [p] + [_layer(g, d, hidden, card, policy=True) for _ in range(2)]
+    x, mask = _inputs(g, b, l, d, card)
+    km, rm = mask.reshape(b, 1, l), mask.reshape(b, l, 1)
+    kw = dict(num_heads=heads, fast_math=fast_math)
+    out = vit_block.fused_vit_block(x, km, rm, p, **kw)
+    ref = vit_block.fused_vit_block_reference(x, km, rm, p, **kw)
+    assert (out.float() - ref.float()).abs().max().item() <= _tol(ref)
+    out, out_mask = vit_block.fused_vit_segment(x, mask, seg, **kw)
+    ref, ref_mask = vit_block.fused_vit_segment_reference(x, mask, seg, **kw)
+    torch.cuda.synchronize()
+    assert ref_mask.sum() < mask.sum()  # the interior gates dropped tokens
+    assert torch.equal(out_mask, ref_mask)
+    assert (out.float() - ref.float()).abs().max().item() <= _tol(ref)
+    assert _kernel_launches(lambda: vit_block.fused_vit_block(
+        x, km, rm, p, **kw)) == (6 if fused else 7)
+    assert _kernel_launches(lambda: vit_block.fused_vit_segment(
+        x, mask, seg, **kw)) == (1 + 5 * 3 if fused else 7 * 3)
+    if fast_math:
+        return
+    qp = vit_block.quantize_block_params(p)
+    out = vit_block.fused_vit_block_int8(x, km, rm, qp, num_heads=heads)
+    ref = vit_block.fused_vit_block_int8_reference(x, km, rm, qp,
+                                                   num_heads=heads)
+    torch.cuda.synchronize()
+    assert (out.float() - ref.float()).abs().max().item() <= _tol(ref)
+    assert _kernel_launches(lambda: vit_block.fused_vit_block_int8(
+        x, km, rm, qp, num_heads=heads)) == (7 if fused else 9)
+
+
+def test_row_epilogues_refuse_what_they_do_not_take(card):
+    g = torch.Generator().manual_seed(4)
+    a, w, kw = _row_case(g, "deit_m1000", "proj_ln", False, card)
+    with pytest.raises(ValueError):  # the LayerNorm missing
+        vit_block.block_gemm(a, w, "proj_ln", resid=kw["resid"],
+                             row_mask=kw["row_mask"])
+    with pytest.raises(TypeError):  # fc1_q is s8 only
+        vit_block.block_gemm(a[:, :384].contiguous(), {
+            "weight": torch.zeros(1536, 384, dtype=torch.bfloat16,
+                                  device=card),
+            "bias": torch.zeros(1536, dtype=torch.bfloat16, device=card)},
+            "fc1_q")
+    a, w, kw = _gemm_case(g, "hidden208_m300", "proj", False, card)
+    kw["ln"] = {"weight": torch.ones(192, dtype=torch.bfloat16, device=card),
+                "bias": torch.zeros(192, dtype=torch.bfloat16, device=card)}
+    with pytest.raises(ValueError, match="row_cluster"):  # N = 192: CN = 1
+        vit_block.block_gemm(a, w, "proj_ln", **kw)

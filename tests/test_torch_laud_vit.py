@@ -37,8 +37,11 @@ def _images(seed=0, b=2):
 
 
 def _flax_params(model, x, seed):
-    v = jax.jit(lambda: model.init({"params": jax.random.PRNGKey(seed)},
-                                   jnp.asarray(x), 1.0, training=False))()
+    # lazy_init: the values of init, without compiling the forward
+    v = jax.jit(lambda: model.lazy_init(
+        {"params": jax.random.PRNGKey(seed)},
+        jax.ShapeDtypeStruct(np.shape(x), jnp.float32), 1.0,
+        training=False))()
     params = dict(jax.tree_util.tree_map(np.array, v["params"]))
     rng = np.random.default_rng(seed)
     for name, blk in params.items():

@@ -119,7 +119,8 @@ def test_ctypes_signatures_match_the_cuda_source():
     assert [s.name for s in sources] == ["attention.cu",
                                          "masked_block.cu",
                                          "probe_int8.cu",
-                                         "vit_block.cu"]
+                                         "vit_block.cu",
+                                         "vit_block_rows.cu"]
     src = "".join(s.read_text() for s in sources)
     decls = dict(re.findall(r"\nint (lt_\w+)\(([^)]*)\)", src))
     assert set(decls) == set(_build._SIGNATURES)
@@ -129,6 +130,7 @@ def test_ctypes_signatures_match_the_cuda_source():
     # the shared header is hashed with the sources, so editing it rebuilds
     assert _build.CSRC / "mma_common.cuh" in _build._sources()
     assert _build.CSRC / "wgmma.cuh" in _build._sources()
+    assert _build.CSRC / "vit_block_epi.cuh" in _build._sources()
     for name, argtypes in _build._SIGNATURES.items():
         assert decls[name].count(",") + 1 == len(argtypes), name
 

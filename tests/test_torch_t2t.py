@@ -33,7 +33,9 @@ def stem():
     x = np.random.default_rng(0).standard_normal(
         (1, 224, 224, 3)).astype(np.float32)
     jstem = jt.T2TStem(embed_dim=EMBED)
-    v = jax.jit(lambda: jstem.init(jax.random.PRNGKey(0), jnp.asarray(x)))()
+    # lazy_init: the values of init, without compiling the forward
+    v = jax.jit(lambda: jstem.lazy_init(
+        jax.random.PRNGKey(0), jax.ShapeDtypeStruct(x.shape, jnp.float32)))()
     params = _np_tree(v["params"])
     ref = np.asarray(jax.jit(jstem.apply)(v, jnp.asarray(x)))
     ref_conv = np.asarray(jax.jit(

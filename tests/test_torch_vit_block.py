@@ -215,14 +215,93 @@ def test_layer_matches_jax_at_widths_off_the_tile(int8):
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL)
 
 
-@pytest.mark.parametrize("int8", [False, True])
+def _bf16_params(p):
+    return {k: {n: t.to(torch.bfloat16) for n, t in v.items()}
+            for k, v in _to_torch(p).items()}
+
+
+def _compose_row_epilogues(int8):
+    """The row epilogues of `block_gemm_reference` chained as the CUDA
+    layers launch them. bf16: a segment at `test_segment_matches_jax_kernel`'s
+    sizes (three layers, interior token policies, ragged entry mask):
+    proj_ln gives x2 and LN2, fc2_ln the next layer's LN1 and token gate.
+    W8A8: the layer at `test_layer_matches_jax_at_widths_off_the_tile`'s
+    (D = 192, hidden 576): proj_ln gives LN2's codes, fc1_q the GELU
+    output's. Returns (composed, plain) outputs and masks."""
+    from laudnet_tpu_torch.ops.quant import quantize_rows
+
+    gemm, ln, neg = vit_block.block_gemm, vit_block.layer_norm, vit_block.NEG
+    if int8:
+        rng = np.random.default_rng(11)
+        b, l, d, heads, hidden = 2, 11, 192, 3, 576
+        layers = [_layer_np(rng, d, hidden)]
+    else:
+        rng = np.random.default_rng(7)
+        b, l, d, heads, hidden = 2, 17, 256, 4, 512
+        layers = [_layer_np(rng, d, hidden),
+                  _layer_np(rng, d, hidden, policy=True),
+                  _layer_np(rng, d, hidden, policy=True)]
+    ps = [_bf16_params(p) for p in layers]
+    x = torch.from_numpy(rng.standard_normal((b, l, d)).astype(
+        np.float32)).to(torch.bfloat16)
+    mask0 = torch.from_numpy(_ragged_mask(rng, b, l))
+    m = b * l
+    xf, mask = x.reshape(m, d), mask0.reshape(-1)
+    if int8:
+        p, qp = ps[0], vit_block.quantize_block_params(ps[0])
+        q1, s1 = quantize_rows(ln(xf, p["ln1"]["weight"], p["ln1"]["bias"]))
+        qkv = gemm(q1, qp["qkv"], "qkv", a_scale=s1.reshape(-1))
+        att = vit_block.attention(qkv.reshape(b, l, 3 * d), (1.0 - mask0) * neg,
+                                  heads, 64 ** -0.5).reshape(m, d)
+        qa, sa = quantize_rows(att.float())
+        x2, q2, s2 = gemm(qa, qp["proj"], "proj_ln", a_scale=sa.reshape(-1),
+                          resid=xf, row_mask=mask, ln=p["ln2"])
+        qu, su = gemm(q2, qp["fc1"], "fc1_q", a_scale=s2)
+        out = gemm(qu, qp["fc2"], "fc2", a_scale=su, resid=x2, row_mask=mask)
+        ref = vit_block.fused_vit_block_int8_reference(
+            x, mask0.reshape(b, 1, l), mask0.reshape(b, l, 1), qp,
+            num_heads=heads)
+        return out.reshape(b, l, d), ref, mask, mask0.reshape(-1)
+    ref, ref_mask = vit_block.fused_vit_segment_reference(x, mask0, ps,
+                                                          num_heads=heads)
+    h1 = ln(xf, ps[0]["ln1"]["weight"], ps[0]["ln1"]["bias"]).to(
+        torch.bfloat16)
+    for i, p in enumerate(ps):
+        qkv = gemm(h1, p["qkv"], "qkv").reshape(b, l, 3 * d)
+        att = vit_block.attention(qkv, (1.0 - mask.reshape(b, l)) * neg,
+                                  heads, 64 ** -0.5).reshape(m, d)
+        x2, h2 = gemm(att, p["proj"], "proj_ln", resid=xf, row_mask=mask,
+                      ln=p["ln2"])
+        u = gemm(h2, p["fc1"], "fc1")
+        if i + 1 < len(ps):
+            xf, h1, mask = gemm(u, p["fc2"], "fc2_ln", resid=x2,
+                                row_mask=mask, ln=ps[i + 1]["ln1"],
+                                policy=ps[i + 1].get("token_policy"),
+                                seq_len=l)
+        else:
+            xf = gemm(u, p["fc2"], "fc2", resid=x2, row_mask=mask)
+    assert ref_mask.sum() < mask0.sum()  # the interior gates dropped tokens
+    return xf.reshape(b, l, d), ref, mask, ref_mask.reshape(-1)
+
+
+@pytest.mark.parametrize("int8", [False, True, "rows", "rows-int8"])
 def test_block_gemm_reference_composes_the_layer(int8):
     """The four products of `block_gemm_reference` (what each launch of
     the GEMM core is held to on the card) chained with the layer's
     LayerNorms, attention and row quantisers give the plain layer bit for
-    bit, bf16 and W8A8; on the CPU `block_gemm` runs that plain version."""
+    bit, bf16 and W8A8; on the CPU `block_gemm` runs that plain version.
+    The row epilogues ('rows', 'rows-int8': `_compose_row_epilogues`)
+    chained without those launches give the plain segment and W8A8 layer
+    bit for bit, and the segment's token mask (the plain versions are held
+    to the JAX kernels in interpret mode by the tests above)."""
     from laudnet_tpu_torch.ops.quant import quantize_rows
 
+    if isinstance(int8, str):
+        before = vit_block.block_gemm.launches
+        out, ref, mask, ref_mask = _compose_row_epilogues(int8 == "rows-int8")
+        assert vit_block.block_gemm.launches == before
+        assert torch.equal(out, ref) and torch.equal(mask, ref_mask)
+        return
     rng = np.random.default_rng(21 + int8)
     b, l, d, heads, hidden = 2, 9, 128, 2, 256
     p = _to_torch(_layer_np(rng, d, hidden))
