@@ -32,8 +32,11 @@ each raising on failure:
    backend named; B3
    (`masked_bottleneck_tail`) at
    the shape of the JAX bench (B=16, 28x28, 1024 -> 2048, patch 7) and at
-   the flagship's four stride-1 block shapes at batch 128, beside the dense
-   tail through cuDNN and the gather -> cuDNN -> scatter tail;
+   the flagship's four stride-1 block shapes at batch 128, with its
+   kernels' device time and launches a call, beside the dense
+   tail through cuDNN and the gather -> cuDNN -> scatter tail; its
+   selection kernel bit for bit against `reference_select_cells`; B3 in
+   f32, at ragged widths, C = 2560, patches 3 and 14 and capacity 1;
 4. DeiT-S serving: LAUD-DeiT-S (12 layers, D=384, 6 heads of 64) four ways
    (nominal, snapped and flat-0.5 caps, and dense) through the kernels,
    with launch counts, token counts, agreement with the same engine on
@@ -117,6 +120,11 @@ from laudnet_tpu_torch.models.laud_resnet import conv_nhwc
 from laudnet_tpu_torch.ops import (_build, masked_block, s8_gemm, sparse,
                                    vit_attention, vit_block)
 from laudnet_tpu_torch.tools import probe_block_budget, probe_host, probe_int8
+# B3's five shapes (name, B, H = W, C, Co, patch, mask density, capacities),
+# their inputs and its kernels' device time, as the build comparison has them
+from laudnet_tpu_torch.tools.compare_b3_build import SHAPES as TAIL_SHAPES
+from laudnet_tpu_torch.tools.compare_b3_build import device as b3_device
+from laudnet_tpu_torch.tools.compare_b3_build import inputs as tail_inputs
 from laudnet_tpu_torch.tools.timing import chain_times
 
 B, L_FULL, IMG = 128, 197, 224
@@ -447,34 +455,6 @@ def sdpa_backend(fn):
     return "; ".join(n[:80] for n in names)
 
 
-# B3's shapes: name, B, H = W, C, Co, patch, mask density, capacities
-TAIL_SHAPES = (
-    ("bench", 16, 28, 1024, 2048, 7, None, (8, 4)),
-    ("stage1", 128, 56, 64, 256, 4, 0.5, (196, 98)),
-    ("stage2", 128, 28, 128, 512, 4, 0.5, (49, 25)),
-    ("stage3", 128, 14, 256, 1024, 2, 0.5, (49, 25)),
-    ("stage4", 128, 7, 512, 2048, 1, 0.5, (49, 25)),
-)
-
-
-def tail_inputs(g, dev, b, hw, c, co, patch, density):
-    """Random bf16 tensors of one bottleneck tail: post-ReLU x1, He-scaled
-    weights, BatchNorm affines near identity, a 0/1 cell mask."""
-    def rn(*shape, scale=1.0):
-        return torch.randn(*shape, generator=g) * scale
-
-    bf = lambda t: t.to(dev, torch.bfloat16)
-    hm = hw // patch
-    return dict(
-        x1=bf(rn(b, hw, hw, c).relu()), identity=bf(rn(b, hw, hw, co)),
-        mask_cells=(torch.rand(b, hm, hm, generator=g) < density).float().to(
-            dev),
-        w2=bf(rn(3, 3, c, c, scale=math.sqrt(2.0 / (9 * c)))),
-        a2=(1.0 + rn(c, scale=0.1)).to(dev), b2=rn(c, scale=0.1).to(dev),
-        w3=bf(rn(c, co, scale=math.sqrt(2.0 / c))),
-        a3=(1.0 + rn(co, scale=0.1)).to(dev), b3=rn(co, scale=0.1).to(dev))
-
-
 def tail_selection(mask_cells, capacity):
     """(B, Hm, Wm) bool: the cells the tail computes, the first ``capacity``
     active ones of each image in raster order."""
@@ -484,18 +464,22 @@ def tail_selection(mask_cells, capacity):
 
 
 def tail_bound(t, patch, capacity):
-    """Least time (ms) for THIS mask: two products on the selected pixels in
-    bf16 against the bytes that must move: the x1 pixels within one pixel of
-    a selected cell, identity and the output whole, both weights, the mask."""
+    """Least time (ms) for THIS mask: two products on the selected pixels
+    (bf16 on the tensor cores, f32 at the CUDA cores' rate) against the
+    bytes that must move: the x1 pixels within one pixel of a selected
+    cell, identity and the output whole, both weights, the mask."""
     b, hw, _, c = t["x1"].shape
     co = t["identity"].shape[-1]
+    size = t["x1"].element_size()
     chosen = tail_selection(t["mask_cells"], capacity)
     pix = chosen.repeat_interleave(patch, 1).repeat_interleave(patch, 2)
     rows = int(pix.sum())
     halo = F.max_pool2d(pix[:, None].float(), 3, 1, 1)
-    ops_s = 2 * rows * (9 * c * c + c * co) / PEAK_BF16
-    moved = (int(halo.sum()) * c * 2 + 2 * b * hw * hw * co * 2
-             + (9 * c * c + c * co) * 2 + (c + co) * 8 + chosen.numel() * 4)
+    peak = PEAK_F32 if size == 4 else PEAK_BF16
+    ops_s = 2 * rows * (9 * c * c + c * co) / peak
+    moved = (int(halo.sum()) * c * size + 2 * b * hw * hw * co * size
+             + (9 * c * c + c * co) * size + (c + co) * 8
+             + chosen.numel() * 4)
     bytes_s = moved / PEAK_HBM
     return (max(ops_s, bytes_s) * 1e3,
             "operations" if ops_s >= bytes_s else "bytes"), rows
@@ -550,61 +534,128 @@ def sparse_tail(t, patch, capacity):
 
 def check_tail(tag, t, patch, capacity, card, rows_out=None, label="",
                timed=True):
-    """B3 against its plain version on ``t``: the ULPS bound, and the cells
-    it does not select equal to relu(identity) bit for bit. Timed beside
-    the plain version and the two yardsticks unless ``timed`` is False."""
+    """B3 against its plain version on ``t``: the ULPS bound (F32_REL of
+    the largest entry in f32), the cells it does not select equal to
+    relu(identity) bit for bit, and the selection kernel bit for bit its
+    plain version. Timed unless ``timed`` is False: single calls through
+    the wrapper, its kernels' device time and launches per call, beside
+    the plain version and the two yardsticks. Returns the row."""
     kw = dict(patch=patch, capacity=capacity)
     kernel = lambda: masked_block.masked_bottleneck_tail(**t, **kw)
     plain = lambda: masked_block.reference_masked_bottleneck_tail(**t, **kw)
     out, ref = kernel(), plain()
+    sel = masked_block.select_cells(t["mask_cells"], capacity)
+    sel_ref = masked_block.reference_select_cells(t["mask_cells"], capacity)
     torch.cuda.synchronize()
-    err, tol = (out.float() - ref.float()).abs().max().item(), ulp_tol(ref)
+    f32 = out.dtype == torch.float32
+    err = (out.float() - ref.float()).abs().max().item()
+    tol = F32_REL * ref.float().abs().max().item() if f32 else ulp_tol(ref)
     chosen = tail_selection(t["mask_cells"], capacity)
     pix = chosen.repeat_interleave(patch, 1).repeat_interleave(patch, 2)
     rest_equal = torch.equal(out[~pix], torch.relu(t["identity"])[~pix])
+    sel_equal = all(torch.equal(a, b) for a, b in zip(sel, sel_ref))
     (bound_ms, bound_by), rows = tail_bound(t, patch, capacity)
     line = (f"{tag}: {int(chosen.sum())} of {chosen.numel()} cells selected "
             f"({rows} rows), max_abs_err {err:.6g} (tol {tol:.6g}), other "
-            f"cells equal relu(identity): {rest_equal}")
+            f"cells equal relu(identity): {rest_equal}, selection kernel "
+            f"equal to its plain version: {sel_equal}")
+    row = None
     if timed:
         ms, plain_ms = time_ms(kernel), time_ms(plain, reps=5, warmup=1)
-        lib_ms = time_ms(dense_tail(t, patch))
-        sparse_ms = time_ms(sparse_tail(t, patch, capacity))
-        line += (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-                 f"{bound_ms:.4f} ms by {bound_by}, dense tail through cuDNN "
-                 f"{lib_ms:.4f} ms, gather/cuDNN/scatter tail "
-                 f"{sparse_ms:.4f} ms [{card}]")
+        dev_ms, per_call, by_kernel = b3_device(kernel)
+        lib_ms = sparse_ms = None
+        line += (f"; kernel {ms:.4f} ms (device "
+                 + ("not measured: the profiler dropped its events"
+                    if dev_ms is None else
+                    f"{dev_ms:.4f} ms, {per_call} launches a call: "
+                    + ", ".join(f"{k} {v:.4f}" for k, v in by_kernel.items()))
+                 + f"), plain {plain_ms:.4f} ms, "
+                 f"bound {bound_ms:.4f} ms by {bound_by}")
+        if not f32:
+            lib_ms = time_ms(dense_tail(t, patch))
+            sparse_ms = time_ms(sparse_tail(t, patch, capacity))
+            line += (f", dense tail through cuDNN {lib_ms:.4f} ms, "
+                     f"gather/cuDNN/scatter tail {sparse_ms:.4f} ms")
+        line += f" [{card}]"
+        row = dict(label=label, err=err, ms=ms, plain_ms=plain_ms,
+                   bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms,
+                   device_ms=dev_ms)
         if rows_out is not None:
-            rows_out.append(dict(label=label, err=err, ms=ms,
-                                 plain_ms=plain_ms, bound_ms=bound_ms,
-                                 bound_by=bound_by, library_ms=lib_ms))
+            rows_out.append(row)
+        if per_call is not None and per_call > 2:
+            raise AssertionError(f"{tag}: {per_call} kernels a call, not 2")
     print(line)
-    if not err <= tol or not rest_equal:
+    if not err <= tol or not rest_equal or not sel_equal:
         raise AssertionError(f"{tag} disagrees with plain")
+    return row
+
+
+# B3 beyond the five shapes, each against its plain version once: f32 (the
+# FFMA kernel), ragged widths (padded to 8 by the wrapper), a width above
+# 2048 and patches outside {1, 2, 4, 7}: name, B, H = W, C, Co, patch,
+# dtype
+TAIL_EXTRA = (
+    ("f32 stage1", 8, 56, 64, 256, 4, torch.float32),
+    ("f32 stage4", 32, 7, 512, 2048, 1, torch.float32),
+    ("ragged 200->88", 8, 28, 200, 88, 4, torch.bfloat16),
+    ("ragged 24->20", 8, 8, 24, 20, 2, torch.bfloat16),
+    ("ragged 24->20 f32", 8, 8, 24, 20, 2, torch.float32),
+    ("C=2560", 4, 7, 2560, 512, 1, torch.bfloat16),
+    ("patch 3", 8, 24, 64, 256, 3, torch.bfloat16),
+    ("patch 14", 8, 28, 128, 512, 14, torch.bfloat16),
+)
 
 
 def phase_tail_kernel(dev, card, results):
     """B3 at the bench's shape and the flagship's four, each at two
-    capacities; then an all-active mask, an all-zero mask and a capacity
-    that binds."""
+    capacities (timed); the bench shape in f32 (timed); f32, ragged widths,
+    C = 2560 and patches 3 and 14; then an all-active mask, an all-zero
+    mask, a capacity that binds and capacity 1."""
     g = torch.Generator().manual_seed(3)
     rows = results.setdefault("masked_bottleneck_tail", [])
+    bench = []
     for name, b, hw, c, co, patch, density, caps in TAIL_SHAPES:
         n_cells = (hw // patch) ** 2
         for i, capacity in enumerate(caps):
             # the bench draws its mask at the density its capacity stands for
             dens = density if density else capacity / n_cells
             t = tail_inputs(g, dev, b, hw, c, co, patch, dens)
-            check_tail(f"B3 masked_bottleneck_tail {name} B={b} {hw}x{hw} "
-                       f"{c}->{co} patch {patch} density {dens:g} capacity "
-                       f"{capacity}", t, patch, capacity, card, rows,
-                       label="serving" if (name, i) == ("bench", 0) else name)
+            row = check_tail(
+                f"B3 masked_bottleneck_tail {name} B={b} {hw}x{hw} {c}->{co} "
+                f"patch {patch} density {dens:g} capacity {capacity}", t,
+                patch, capacity, card, rows,
+                label="serving" if (name, i) == ("bench", 0) else name)
+            if name == "bench":
+                bench.append((dens, row))
+                if i == 0:
+                    t32 = {k: (v.float() if v.dtype == torch.bfloat16 else v)
+                           for k, v in t.items()}
+                    check_tail(f"B3 masked_bottleneck_tail {name} f32 "
+                               f"capacity {capacity}", t32, patch, capacity,
+                               card)
+                    del t32
             del t
+    print("JAX bench ratio, dense tail through cuDNN / B3: " + ", ".join(
+        f"{r['library_ms'] / r['ms']:.4f} (wrapper), "
+        + ("device not measured" if r["device_ms"] is None else
+           f"{r['library_ms'] / r['device_ms']:.4f} (device)")
+        + f" at density {d:g}" for d, r in bench) + f" [{card}]")
+    for name, b, hw, c, co, patch, dtype in TAIL_EXTRA:
+        t = tail_inputs(g, dev, b, hw, c, co, patch, 0.5)
+        t = {k: (v.to(dtype) if v.dtype == torch.bfloat16 else v)
+             for k, v in t.items()}
+        n_cells = (hw // patch) ** 2
+        for capacity in (max(1, n_cells // 3), n_cells):
+            check_tail(f"B3 masked_bottleneck_tail {name} B={b} {hw}x{hw} "
+                       f"{c}->{co} patch {patch} capacity {capacity}", t,
+                       patch, capacity, card, timed=False)
+        del t
     t = tail_inputs(g, dev, 128, 28, 128, 512, 4, 0.6)
     for kind, mask, capacity in (
             ("all-active mask", torch.ones_like(t["mask_cells"]), 49),
             ("all-zero mask", torch.zeros_like(t["mask_cells"]), 49),
-            ("binding capacity 5 of ~29 active", t["mask_cells"], 5)):
+            ("binding capacity 5 of ~29 active", t["mask_cells"], 5),
+            ("capacity 1", t["mask_cells"], 1)):
         check_tail(f"B3 masked_bottleneck_tail stage2 {kind}",
                    dict(t, mask_cells=mask), 4, capacity, card, timed=False)
 
@@ -1948,6 +1999,9 @@ def tail_on_block(stage, block, x, card):
     mean = (got.float() - want.float()).abs().mean().item()
     ms = time_ms(lambda: masked_block.masked_bottleneck_tail(
         **t, patch=patch, capacity=capacity))
+    dev_ms, per_call, _ = b3_device(
+        lambda: masked_block.masked_bottleneck_tail(**t, patch=patch,
+                                                    capacity=capacity))
     block.execution = "sparse"
     own_ms = time_ms(lambda: block(x, 0.1))
     block.execution = "dense"
@@ -1957,10 +2011,14 @@ def tail_on_block(stage, block, x, card):
           f"{cells.mean().item():.4f}: launches "
           f"{delta['masked_bottleneck_tail']}, vs the block's sparse "
           f"execution max_abs_err {err:.6g} (tol {tol:.6g}, mean {mean:.6g}); "
-          f"B3 {ms:.4f} ms; the whole block sparse {own_ms:.4f} ms, "
+          f"B3 {ms:.4f} ms (device "
+          + ("not measured" if dev_ms is None else
+             f"{dev_ms:.4f} ms, {per_call} launches a call")
+          + f"); the whole block sparse {own_ms:.4f} ms, "
           f"dense-masked {whole_ms:.4f} ms (conv1, masker and bookkeeping "
           f"included) [{card}]")
-    if delta["masked_bottleneck_tail"] != 1 or not err <= tol:
+    if (delta["masked_bottleneck_tail"] != 1
+            or (per_call is not None and per_call > 2) or not err <= tol):
         raise AssertionError(f"B3 on layer{stage}_1 disagrees with the "
                              "block's sparse execution")
 
@@ -2545,7 +2603,9 @@ def main():
                         "ms": row["ms"], "plain_ms": row["plain_ms"],
                         "bound_ms": row["bound_ms"],
                         "bound_by": row["bound_by"],
-                        "library_ms": row["library_ms"]})
+                        "library_ms": row["library_ms"],
+                        **({"device_ms": row["device_ms"]}
+                           if "device_ms" in row else {})})
         if launches[name] == 0:
             raise AssertionError(f"{name} never launched on the main path")
     print(f"all phases passed in {time.perf_counter() - t0:.1f} s [{card}]")

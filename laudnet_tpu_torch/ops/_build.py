@@ -60,9 +60,11 @@ _SIGNATURES = {
     # qkv, key_mask, head_gate, dout, stats, dqkv, dhead, delta, dgate_part,
     # b, l, num_heads, sm_scale, f32, stream
     "lt_attn_bwd": (_P,) * 9 + (_I, _I, _I, _F, _I, _P),
-    # x1, identity, slots, n_valid, selected, w2t, a2, b2, w3t, a3, b3, mid,
-    # out, b, h, w, c, co, patch, max_slots, stream
-    "lt_masked_tail": (_P,) * 13 + (_I,) * 7 + (_P,),
+    # x1, identity, mask, mask_type, w2, a2, b2, w3, a3, b3, slots, counts,
+    # selected, mid, out, f32, b, h, w, c, co, patch, capacity, stream
+    "lt_masked_tail": (_P, _P, _P, _I) + (_P,) * 11 + (_I,) * 8 + (_P,),
+    # mask, mask_type, slots, counts, selected, b, n_cells, capacity, stream
+    "lt_select_cells": (_P, _I, _P, _P, _P, _I, _I, _I, _P),
     # a, b, c, m, n, k, stream
     "lt_s8_gemm": (_P, _P, _P, _I, _I, _I, _P),
     # base, rows, k, reps (the host's cost of the GEMM core's descriptors)

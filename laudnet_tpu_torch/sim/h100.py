@@ -78,7 +78,7 @@ _LN_PASSES = 10           # plain f32 LayerNorm: casts, moments, affine
 _SPATIAL_MASK_LAUNCHES = 53
 _CHANNEL_MASK_LAUNCHES = 41
 _SPARSE_LAUNCHES = 16     # select_patches, gather, scatter-add per block
-_B3_LAUNCHES = 15         # B3's selection, weight packing, 3 kernels
+_B3_LAUNCHES = 2          # B3: the selection kernel and the tail
 # the block engine's kernels, each one launch through its ctypes wrapper
 _WRAPPER_OPS = frozenset({"gemm", "attention", "layernorm", "rowquant"})
 
@@ -455,8 +455,8 @@ class H100Predictor:
     def b3_block(self, g: BlockGeom, granul: int,
                  capacity: float) -> SimulationReport:
         """B3 on a stride-1 block (rank-only): the masker, dense conv1, and
-        the tail on the selected patches at B3's measured rate (the GEMM
-        kernel's fraction of peak) and bytes."""
+        the tail on the selected patches at B3's own measured rate
+        (``b3_rate``) and bytes."""
         s = self.spec
         b = s.batch_size
         cells = (g.h // granul) ** 2
@@ -465,8 +465,8 @@ class H100Predictor:
         flops = 2.0 * rows * g.width * (9 * g.width + g.cout)
         moved = _BF16 * (b * g.h * g.h * (g.width + 2 * g.cout))
         rep = self.spatial_masker(g) + self.conv(g.cin, g.width, g.h, 1)
-        return rep + self._op(flops, moved, s.peak_bf16 * s.block_gemm_frac,
-                              _B3_LAUNCHES, op="b3")
+        return rep + self._op(flops, moved, s.b3_rate, _B3_LAUNCHES,
+                              op="b3")
 
     def predict_network(self, model: str, mode: str | Sequence[str] = "static",
                         act_rates: Optional[Sequence[float]] = None,

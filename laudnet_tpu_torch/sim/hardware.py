@@ -25,7 +25,10 @@ class HopperSpec:
       ``fused_attention_rate`` / ``fused_attention_rate_f32``: B4, the
       attention forward of ``attn_impl='fused'`` (`csrc/attention.cu`), in
       bf16 / f32, at DeiT-S L = 197, batch 128, with the head mask
-      (`chip_smoke.py`, the kernel checks);
+      (`chip_smoke.py`, the kernel checks); ``b3_rate``: B3, the masked
+      bottleneck tail (`csrc/masked_block.cu`), over its two products'
+      operations at the JAX bench's shape (`chip_smoke.py`, the device time
+      of its kernels);
       ``block_ln_frac``: B1's LayerNorm kernel as a fraction of
       ``mem_bandwidth`` (`tools/probe_block_budget.py --stages`, P1);
     * ``block_s8_gemm_frac``: B6's s8 GEMMs at the block's K (same probe),
@@ -56,6 +59,7 @@ class HopperSpec:
     attention_rate: float
     fused_attention_rate: float
     fused_attention_rate_f32: float
+    b3_rate: float
     block_ln_frac: float
     block_s8_gemm_frac: float
     s8_gemm_frac: float
@@ -113,6 +117,11 @@ HOPPER_PRESETS = {
         # of ten calls, in turns with PyTorch's attention)
         fused_attention_rate=7.630159872e9 / 0.1228e-3,
         fused_attention_rate_f32=7.630159872e9 / 0.8384e-3,
+        # B3 at the JAX bench's shape (B = 16, 28^2, 1024 -> 2048, patch 7,
+        # capacity 8: 5,096 rows, 117.56 GFLOP) in 0.4262 ms of device time
+        # (its two kernels, torch.profiler), one run of `python3
+        # chip_smoke.py` on the same card
+        b3_rate=117.558652928e9 / 0.4262e-3,
         block_ln_frac=1590.82 / 3350,
         block_s8_gemm_frac=219.02 / 1979,
         s8_gemm_frac=1250.66 / 1979,

@@ -361,11 +361,12 @@ def test_attention_backward_kernel_matches_plain(card, b, heads, l, gated):
         assert not closed.any() and grads[1][0, 0] != 0
 
 
-def _tail_inputs(seed, b, hw, c, co, patch, density, dev):
+def _tail_inputs(seed, b, hw, c, co, patch, density, dev,
+                 dtype=torch.bfloat16):
     g = torch.Generator().manual_seed(seed)
     rn = lambda *shape, scale=1.0: torch.randn(*shape, generator=g) * scale
     hm = hw // patch
-    bf = lambda t: t.to(dev, torch.bfloat16)
+    bf = lambda t: t.to(dev, dtype)
     mask = (torch.rand(b, hm, hm, generator=g) < density).float().to(dev)
     return dict(
         x1=bf(rn(b, hw, hw, c).relu()), identity=bf(rn(b, hw, hw, co)),
@@ -373,6 +374,12 @@ def _tail_inputs(seed, b, hw, c, co, patch, density, dev):
         a2=(1.0 + rn(c, scale=0.1)).to(dev), b2=rn(c, scale=0.1).to(dev),
         w3=bf(rn(c, co, scale=c ** -0.5)),
         a3=(1.0 + rn(co, scale=0.1)).to(dev), b3=rn(co, scale=0.1).to(dev))
+
+
+def _f32_tol(ref):
+    """The f32 kernels against their f32 plain versions: full f32 sums in
+    other orders, 1e-4 of the largest entry (TF32 would miss it)."""
+    return 1e-4 * ref.float().abs().max().item()
 
 
 def _check_tail(t, patch, capacity):
@@ -383,13 +390,14 @@ def _check_tail(t, patch, capacity):
     assert masked_block.masked_bottleneck_tail.launches == before + 1
     want = masked_block.reference_masked_bottleneck_tail(
         **t, patch=patch, capacity=capacity)
-    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    assert got.dtype == want.dtype and got.shape == want.shape
     err = (got.float() - want.float()).abs().max().item()
-    assert err <= _tol(want), (err, _tol(want))
+    tol = _f32_tol(want) if got.dtype == torch.float32 else _tol(want)
+    assert err <= tol, (err, tol)
     # cells that were not selected: relu(identity), bit for bit
     b, hm = t["mask_cells"].shape[:2]
     active = t["mask_cells"].reshape(b, -1) > 0.5
-    chosen = (active & (active.cumsum(1) <= capacity)).reshape(b, hm, hm)
+    chosen = (active & (active.cumsum(1) <= capacity)).reshape(b, hm, -1)
     pix = chosen.repeat_interleave(patch, 1).repeat_interleave(patch, 2)
     rest = torch.relu(t["identity"])[~pix]
     assert torch.equal(got[~pix], rest)
@@ -428,17 +436,89 @@ def test_bottleneck_tail_mask_extremes(card, kind):
         assert torch.equal(got, torch.relu(t["identity"]))
 
 
+# f32 at a fused width and above it; ragged widths (padded to 8 by the
+# wrapper), a width above 2048, patches outside {1, 2, 4, 7}, capacity 1
+# and a batch of one: B, H = W, C, Co, patch, dtype, capacity
+TAIL_CASES = [(2, 14, 64, 256, 2, "f32", None),
+              (2, 14, 512, 1024, 7, "f32", None),
+              (2, 8, 24, 20, 2, "bf16", None),
+              (2, 8, 200, 88, 4, "bf16", None),
+              (2, 8, 24, 88, 2, "f32", None),
+              (1, 7, 2560, 256, 1, "bf16", None),
+              (2, 12, 64, 256, 3, "bf16", None),
+              (2, 28, 128, 512, 14, "bf16", None),
+              (3, 28, 128, 512, 4, "bf16", 1),
+              (1, 28, 64, 256, 4, "bf16", None)]
+
+
+@pytest.mark.parametrize("b,hw,c,co,patch,dtype,capacity", TAIL_CASES)
+def test_bottleneck_tail_any_shape_and_f32_match_plain(card, b, hw, c, co,
+                                                       patch, dtype,
+                                                       capacity):
+    dt = torch.float32 if dtype == "f32" else torch.bfloat16
+    t = _tail_inputs(b + hw + c + co, b, hw, c, co, patch, 0.5, card, dt)
+    n_cells = (hw // patch) ** 2
+    got = _check_tail(t, patch, capacity or n_cells)
+    assert got.shape == t["identity"].shape
+    if capacity is None:
+        _check_tail(t, patch, max(1, n_cells // 3))
+
+
+@pytest.mark.parametrize("b,hm,density,capacity", [
+    (128, 14, 0.5, 98), (16, 4, 0.5, 8), (3, 9, 0.3, 81), (2, 5, 1.0, 7),
+    (1, 7, 0.0, 49), (1, 1, 1.0, 1), (1100, 3, 0.6, 4)])
+def test_selection_kernel_bit_equal_to_plain(card, b, hm, density, capacity):
+    g = torch.Generator().manual_seed(b + hm)
+    mask = (torch.rand(b, hm, hm, generator=g) < density).float().to(card)
+    for m in (mask, mask.to(torch.bfloat16)):
+        got = masked_block.select_cells(m, capacity)
+        want = masked_block.reference_select_cells(m, capacity)
+        torch.cuda.synchronize()
+        for x, y in zip(got, want):
+            assert x.dtype == y.dtype and torch.equal(x, y)
+
+
+@pytest.mark.parametrize("b,hw,c,co,patch", [TAIL_SHAPES[0], TAIL_SHAPES[1],
+                                             TAIL_SHAPES[4]])
+def test_bottleneck_tail_launches_twice_without_a_host_sync(card, b, hw, c,
+                                                            co, patch):
+    """A call is the selection and the tail: two kernels on the card and
+    nothing else (no weight repack, no selection ops), and no host sync."""
+    t = _tail_inputs(5, b, hw, c, co, patch, 0.5, card)
+    n_cells = (hw // patch) ** 2
+    call = lambda: masked_block.masked_bottleneck_tail(
+        **t, patch=patch, capacity=n_cells // 2)
+    assert _kernel_launches(call) == 2
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        call()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
 def test_bottleneck_tail_refuses_what_it_does_not_take(card):
+    """Only what the JAX kernel refuses too, or cannot mean, is refused:
+    f32, ragged widths and any patch that tiles are taken."""
     t = _tail_inputs(1, 2, 8, 64, 64, 2, 0.5, card)
-    f32 = {k: (v.float() if v.dtype == torch.bfloat16 else v)
-           for k, v in t.items()}
-    with pytest.raises(TypeError):
-        masked_block.masked_bottleneck_tail(**f32, patch=2, capacity=4)
-    with pytest.raises(ValueError):
-        masked_block.masked_bottleneck_tail(**t, patch=2, capacity=0)
-    narrow = _tail_inputs(1, 2, 8, 32, 64, 2, 0.5, card)
-    with pytest.raises(ValueError):
-        masked_block.masked_bottleneck_tail(**narrow, patch=2, capacity=4)
+    with pytest.raises(TypeError):  # integer inputs
+        masked_block.masked_bottleneck_tail(
+            **dict(t, x1=t["x1"].to(torch.int32)), patch=2, capacity=4)
+    with pytest.raises(TypeError):  # one working type for x1 and the rest
+        masked_block.masked_bottleneck_tail(
+            **dict(t, w3=t["w3"].float()), patch=2, capacity=4)
+    for capacity in (0, 17):
+        with pytest.raises(ValueError):
+            masked_block.masked_bottleneck_tail(**t, patch=2,
+                                                capacity=capacity)
+    with pytest.raises(ValueError):  # a patch that does not tile
+        masked_block.masked_bottleneck_tail(**t, patch=3, capacity=4)
+    with pytest.raises(ValueError):  # mismatched shapes
+        masked_block.masked_bottleneck_tail(
+            **dict(t, identity=t["identity"][:, :4]), patch=2, capacity=4)
+    with pytest.raises(ValueError):  # another device
+        masked_block.masked_bottleneck_tail(
+            **dict(t, w2=t["w2"].cpu()), patch=2, capacity=4)
 
 
 @pytest.mark.parametrize("mode", sorted(MODES))
@@ -658,22 +738,27 @@ def test_fc1_codes_bit_equal_to_rowquant(card, geom):
 
 def _kernel_launches(fn):
     """Kernels one call of ``fn`` runs on the card (`torch.profiler`),
-    copies aside. A trace that came back with no device activity at all
-    (the profiler dropped its buffer) is taken again."""
+    copies aside. The profiler can drop events (a whole buffer, or one
+    kernel of a trace), so the count is taken again until two traces
+    agree; a launch count is deterministic."""
+    import time
+
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    counts = []
+    for attempt in range(6):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-        events = [e for e in prof.key_averages()
-                  if e.device_type.name == "CUDA"]
-        if events:
+        counts.append(sum(e.count for e in prof.key_averages()
+                          if e.device_type.name == "CUDA"
+                          and not e.key.startswith(("Memcpy", "Memset"))))
+        if len(counts) > 1 and counts[-1] == counts[-2] > 0:
             break
-    return sum(e.count for e in events
-               if not e.key.startswith(("Memcpy", "Memset")))
+        time.sleep(0.1 * (attempt + 1))
+    return counts[-1]
 
 
 # B1, B2 (3 layers) and B6 at widths the clusters take (DeiT-S, T2T-ViT-19)

@@ -8,6 +8,9 @@ nine taps in another order, so atol 1e-4 (the JAX test's own bound against
 its dense graph). The CUDA kernel itself is held to the plain version on a
 card (`tests/test_torch_kernels_cuda.py`, `chip_smoke.py`)."""
 
+import functools
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -122,6 +125,89 @@ def test_fold_bn():
     np.testing.assert_allclose(a.numpy(), np.asarray(ja), rtol=1e-6)
     np.testing.assert_allclose(b.numpy(), np.asarray(jb), rtol=1e-6,
                                atol=1e-7)
+
+
+@functools.partial(jax.jit, static_argnames="capacity")
+def _jax_selection(mask_cells, *, capacity):
+    """The JAX kernel's own selection
+    (`laudnet_tpu/ops/pallas/masked_block.py:194-198`): stable top-k over
+    each image's flat mask, a slot valid where its value is > 0.5."""
+    b = mask_cells.shape[0]
+    vals, idx = jax.lax.top_k(mask_cells.reshape(b, -1), capacity)
+    return idx, vals > 0.5
+
+
+@pytest.mark.parametrize("kind,b,hm,capacity", [
+    ("random", 4, 4, 16), ("random", 3, 7, 25), ("all_zero", 2, 4, 16),
+    ("all_active", 2, 4, 16), ("binding", 3, 4, 3), ("random", 1, 5, 10)])
+def test_selection_matches_the_jax_top_k(kind, b, hm, capacity):
+    """`reference_select_cells`, the selection kernel's plain version,
+    keeps the cells the JAX kernel keeps, in its order: image-major, raster
+    order within an image; slots past the count hold -1."""
+    rng = np.random.default_rng(hm + capacity)
+    mask = (rng.random((b, hm, hm)) < 0.5).astype(np.float32)
+    if kind == "all_zero":
+        mask[:] = 0.0
+    elif kind in ("all_active", "binding"):
+        mask[:] = 1.0
+    idx, valid = map(np.asarray, _jax_selection(jnp.asarray(mask),
+                                                capacity=capacity))
+    n_cells = hm * hm
+    want = [i * n_cells + int(idx[i, k]) for i in range(b)
+            for k in range(capacity) if valid[i, k]]
+    slots, n_valid, selected = tmb.reference_select_cells(
+        torch.from_numpy(mask), capacity)
+    assert n_valid.tolist() == [len(want)]
+    assert slots.dtype == torch.int32 and slots.shape == (b * capacity,)
+    assert slots[:len(want)].tolist() == want
+    assert (slots[len(want):] == -1).all()
+    flags = np.zeros(b * n_cells, np.uint8)
+    flags[want] = 1
+    np.testing.assert_array_equal(selected.numpy(), flags)
+
+
+def test_plain_version_at_a_ragged_patch_and_widths():
+    """Patch 3 (outside the CUDA kernel's former {1, 2, 4, 7}) and widths
+    that are not multiples of 8 (C = 12, Co = 20), f32, every active cell
+    selected: the dense graph with the mask, summed in f64."""
+    patch, hm, c, co = 3, 4, 12, 20
+    t = {k: torch.from_numpy(v) for k, v in
+         _inputs(11, 2, patch, hm, c, co).items()}
+    got = tmb.reference_masked_bottleneck_tail(**t, patch=patch,
+                                               capacity=hm * hm)
+    d = {k: v.double() for k, v in t.items()}
+    x = torch.nn.functional.conv2d(
+        d["x1"].permute(0, 3, 1, 2), d["w2"].permute(3, 2, 0, 1),
+        padding=1).permute(0, 2, 3, 1)
+    h = torch.relu(x * d["a2"] + d["b2"])
+    y = (h @ d["w3"]) * d["a3"] + d["b3"]
+    mask = d["mask_cells"].repeat_interleave(patch, 1).repeat_interleave(
+        patch, 2)[..., None]
+    want = torch.relu(d["identity"] + y * mask)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-4)
+
+
+def test_channel_pad_is_exact():
+    """The wrapper's pad of ragged widths to a multiple of 8 changes
+    nothing: the plain version on the padded inputs, sliced back, equals
+    the unpadded result bit for bit in f32 (a padded channel adds exact
+    zeros to every sum)."""
+    patch, hm, c, co = 2, 3, 12, 20
+    t = {k: torch.from_numpy(v) for k, v in
+         _inputs(13, 2, patch, hm, c, co).items()}
+    names = ("x1", "identity", "w2", "a2", "b2", "w3", "a3", "b3")
+    padded = dict(zip(names, tmb.pad_channels(*(t[k] for k in names))))
+    assert padded["x1"].shape[-1] == 16 and padded["identity"].shape[-1] == 24
+    assert padded["w2"].shape == (3, 3, 16, 16)
+    assert padded["w3"].shape == (16, 24)
+    kw = dict(patch=patch, capacity=7)
+    want = tmb.reference_masked_bottleneck_tail(**t, **kw)
+    got = tmb.reference_masked_bottleneck_tail(
+        **padded, mask_cells=t["mask_cells"], **kw)
+    assert torch.equal(got[..., :co], want)
+    assert not got[..., co:].any()
+    same = tmb.pad_channels(*(padded[k] for k in names))
+    assert all(a is b for a, b in zip(same, padded.values()))
 
 
 def test_no_kernel_for_other_devices():

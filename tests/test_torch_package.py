@@ -263,15 +263,17 @@ def test_int8_kernel_input_checks():
 
 def test_bottleneck_tail_input_checks():
     """What the CUDA tail kernel refuses, checked before any pointer is
-    passed; the checks run on CPU tensors too."""
+    passed; the checks run on CPU tensors too. f32, ragged widths (padded
+    by the wrapper), any patch that tiles and non-contiguous tensors
+    (copied by the wrapper) pass."""
     from laudnet_tpu_torch.ops import masked_block
 
     bf = torch.bfloat16
 
-    def args(c=64, co=64, hw=8, dtype=bf):
+    def args(c=64, co=64, hw=8, dtype=bf, cells=4):
         return dict(x1=torch.zeros(2, hw, hw, c, dtype=dtype),
                     identity=torch.zeros(2, hw, hw, co, dtype=dtype),
-                    mask_cells=torch.ones(2, hw // 2, hw // 2),
+                    mask_cells=torch.ones(2, cells, cells),
                     w2=torch.zeros(3, 3, c, c, dtype=dtype),
                     a2=torch.ones(c), b2=torch.zeros(c),
                     w3=torch.zeros(c, co, dtype=dtype), a3=torch.ones(co),
@@ -279,23 +281,28 @@ def test_bottleneck_tail_input_checks():
 
     check = masked_block._check_cuda
     check(**args(), patch=2, capacity=16)
-    with pytest.raises(TypeError, match="bf16"):
-        check(**args(dtype=torch.float32), patch=2, capacity=16)
+    check(**args(dtype=torch.float32), patch=2, capacity=16)
+    check(**args(c=12, co=20), patch=2, capacity=16)
+    check(**args(hw=9, cells=3), patch=3, capacity=9)
+    bad = args()
+    bad["x1"] = torch.zeros(2, 8, 64, 8, dtype=bf).transpose(2, 3)
+    check(**bad, patch=2, capacity=16)
+    with pytest.raises(TypeError, match="bf16 or f32"):
+        check(**args(dtype=torch.int32), patch=2, capacity=16)
+    with pytest.raises(TypeError, match="w3"):
+        check(**dict(args(), w3=torch.zeros(64, 64)), patch=2, capacity=16)
     with pytest.raises(ValueError, match="patch"):
-        check(**args(hw=9), patch=3, capacity=9)
-    with pytest.raises(ValueError, match="multiple of 8"):
-        check(**args(c=32), patch=2, capacity=16)
-    with pytest.raises(ValueError, match="multiple of 8"):
-        check(**args(co=68), patch=2, capacity=16)
+        check(**args(hw=9, cells=3), patch=2, capacity=9)
     with pytest.raises(ValueError, match="capacity"):
         check(**args(), patch=2, capacity=17)
+    with pytest.raises(ValueError, match="capacity"):
+        check(**args(), patch=2, capacity=0)
     with pytest.raises(ValueError, match="does not tile"):
         check(**dict(args(), mask_cells=torch.ones(2, 3, 4)), patch=2,
               capacity=4)
-    with pytest.raises(ValueError, match="contiguous"):
-        bad = args()
-        bad["x1"] = torch.zeros(2, 8, 64, 8, dtype=bf).transpose(2, 3)
-        check(**bad, patch=2, capacity=16)
+    with pytest.raises(ValueError, match="identity"):
+        check(**dict(args(), identity=torch.zeros(2, 8, 4, 64, dtype=bf)),
+              patch=2, capacity=16)
     assert masked_block.masked_bottleneck_tail.launches == 0
 
 
