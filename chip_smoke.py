@@ -78,7 +78,26 @@ each raising on failure:
     built with its options), and the latency model's
     predicted ms beside the measured ms of every ranked mode the port
     serves (an order the prediction reverses by more than ORDER_GAP
-    fails).
+    fails);
+11. LAUD-RegNetY-1.6GF (published widths, the repo's channel 2-2-2-2
+    recipe, bs128 bf16): served through `ServingEngine` (the no-ranking
+    dense-masked plan), timed with the gates open and with half the
+    channel groups closed beside the static RegNetY-1.6GF, the bf16 and
+    f32 forwards under ``torch.cuda.set_sync_debug_mode("error")``, the f32
+    channel masks against the CPU's, and trained
+    (``train.main.main(--arch lad_regnet_y_1_6gf --amp ... --lr_mult
+    0.1)``: 4 steps through the CLI, 8 on a repeated batch with the loss
+    falling, step ms, idle share, peak memory);
+12. serving artifacts (`infer/aot.py`): the DeiT-S block engine dense and
+    snapped, its int8 engine, `LAUDViT(attn_impl='fused')` and the RegNet
+    exported, saved and served by one fresh process with no model code
+    (`tools/serve_artifact.py`): logits bit for bit the live models', the
+    port's kernels the same by name and count, another batch refused; and
+    the registered op's host µs a call over its CUDA implementation
+    called directly;
+13. the GPU roofline simulator's CLI (`python -m
+    laudnet_tpu_torch.sim.cli`), ResNet-50 on the V100 preset and a DeiT-S
+    plan on the H100 model.
 
 Prints a JSON line of the kernels, then as its last line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX. Nothing runs at
@@ -90,7 +109,7 @@ a changed kernel), ``python3 chip_smoke.py train`` runs phases 1-3 and 6,
 ``python3 chip_smoke.py probes`` runs phases 1-2 and both probes in full
 (every mode set, the stage breakdown, the launch costs of
 `tools/probe_host.py`), ``python3 chip_smoke.py engine`` runs phases 1-2
-and 10, and ``python3 chip_smoke.py profile`` prints, instead of
+and 10, ``python3 chip_smoke.py regnet`` phases 1-2 and 11-13, and ``python3 chip_smoke.py profile`` prints, instead of
 the phases, where a forward's device time goes (`torch.profiler`, by
 kernel) for the dense and snapped DeiT-S, W8A8 DeiT-S and T2T-ViT-19
 engines. None of
@@ -114,12 +133,14 @@ import torch.nn.functional as F
 from laudnet_tpu_torch.entry import entry, flagship
 from laudnet_tpu_torch.infer.engine import ServingEngine, configured
 from laudnet_tpu_torch.infer.fused_vit import _patchify, build_fused_vit
-from laudnet_tpu_torch.models import (laud_deit_small, laud_t2t_vit_19,
+from laudnet_tpu_torch.models import (lad_regnet_y_1_6gf, laud_deit_small,
+                                      laud_t2t_vit_19, regnet_static,
                                       resnet50, uni_resnet50)
 from laudnet_tpu_torch.models.laud_resnet import conv_nhwc
 from laudnet_tpu_torch.ops import (_build, masked_block, s8_gemm, sparse,
                                    vit_attention, vit_block)
-from laudnet_tpu_torch.tools import probe_block_budget, probe_host, probe_int8
+from laudnet_tpu_torch.tools import (probe_block_budget, probe_host,
+                                     probe_int8, serve_artifact)
 # B3's five shapes (name, B, H = W, C, Co, patch, mask density, capacities),
 # their inputs and its kernels' device time, as the build comparison has them
 from laudnet_tpu_torch.tools.compare_b3_build import SHAPES as TAIL_SHAPES
@@ -2522,6 +2543,313 @@ def phase_engine(dev, card):
                              + "; ".join(reversed_pairs))
 
 
+# --- LAUD-RegNet, the serving artifacts and the simulator ----------------------
+
+# The repo's RegNet recipe (`train_scripts.sh`, 4): LAUD-RegNetY-1.6GF in
+# channel mode, channel groups of 2 in every stage, the backbone at a tenth
+# of the learning rate.
+REGNET_KEY = "y_1_6gf"
+REGNET_KW = dict(dyn_mode=("channel",) * 4, channel_dyn_granularity=(2,) * 4)
+REGNET_TRAIN_ARGV = [
+    "--arch", f"lad_regnet_{REGNET_KEY}", "--amp", "--batch_size", str(B),
+    "--input_size", str(IMG), "--dyn_mode", "channel-channel-channel-channel",
+    "--channel_dyn_granularity", "2-2-2-2", "--t0", "5.0", "--t_last", "0.1",
+    "--temp_scheduler", "exp", "--target_rate", "0.5", "--lambda_act", "10.0",
+    "--T_kd", "4.0", "--alpha_kd", "0.5", "--lr_mult", "0.1", "--epochs", "1",
+    "--print_freq", "1", "--steps_per_epoch"]
+REGNET_TRAIN_STEPS = 4
+REGNET_MASK_IMAGES = 16  # the f32 card-vs-CPU mask comparison's batch
+
+
+def regnet(dev, seed=7, **kw):
+    return lad_regnet_y_1_6gf(**REGNET_KW, **kw,
+                              generator=torch.Generator(dev).manual_seed(seed))
+
+
+def channel_maskers(model):
+    return [blk.masker_channel for st in model.stages() for blk in st]
+
+
+@torch.no_grad()
+def close_half_the_groups(model):
+    """Every channel masker's keep bias at -10 for the even groups (the
+    skip bias is -2): those groups close for every image, about half."""
+    for mk in channel_maskers(model):
+        mk.fc.bias[:mk.group:2] = -10.0
+
+
+def recorded_channel_masks(model, x):
+    masks = []
+    hooks = [mk.register_forward_hook(lambda m, a, out: masks.append(out[0]))
+             for mk in channel_maskers(model)]
+    with torch.no_grad():
+        model(x, 0.1)
+    for h in hooks:
+        h.remove()
+    return torch.cat([m.float().cpu().reshape(-1) for m in masks])
+
+
+def phase_regnet(dev, card):
+    bf16 = torch.bfloat16
+    images = torch.randn(B, IMG, IMG, 3, device=dev,
+                         generator=torch.Generator(dev).manual_seed(8))
+
+    # --- the serving engine: no analytic geometry, the honest plan --------
+    model = regnet(dev, compute_dtype=bf16).eval()
+    engine = ServingEngine(model)
+    plan = engine.calibrate([images[:64], images[64:]])
+    print(f"RegNetY-1.6GF serving plan: mode {plan.mode}, served "
+          f"{plan.served}, ranking {plan.ranking}, exact {plan.exact}")
+    if (plan.mode != "dense-masked" or plan.served != plan.mode
+            or plan.ranking != {}):
+        raise AssertionError("RegNet: not the no-ranking dense-masked plan")
+    logits, _ = counted(lambda: engine(images))
+    if logits.shape != (B, 1000) or not torch.isfinite(logits.float()).all():
+        raise AssertionError("RegNet: bad served logits")
+
+    # --- no host sync in the forward, bf16 and f32 -------------------------
+    model32 = regnet(dev).eval()
+    for name, m in (("bf16", model), ("f32", model32)):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            with torch.no_grad():
+                m(images[:8], 0.1)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        print(f"RegNetY-1.6GF {name} forward: no host synchronisation")
+
+    # --- throughput: gates open (fresh), half the groups closed, static ---
+    half = regnet(dev, compute_dtype=bf16).eval()
+    close_half_the_groups(half)
+    static = regnet_static(REGNET_KEY, compute_dtype=bf16,
+                           generator=torch.Generator(dev).manual_seed(9)
+                           ).eval()
+    with torch.no_grad():
+        for name, m in (("gates open", model), ("half the groups closed",
+                                                half),
+                        ("static RegNetY-1.6GF", static)):
+            out = m(images, 0.1)
+            call = lambda m=m: m(images, 0.1)
+            ms = time_ms(call, reps=10, warmup=2)
+            busy, launches = device_busy_ms(call, 2)
+            print(f"RegNetY-1.6GF {name}: {ms:.4f} ms, "
+                  f"{B / (ms / 1e3):.1f} img/s (bs{B} bf16, dense-masked), "
+                  f"channel density {torch.cat(out.channel_s).mean().item():.4f}"
+                  f", GFLOPs {out.flops.item() / 1e9:.4f}; {busy:.4f} ms of "
+                  f"kernels, idle share {max(0.0, 1 - busy / ms):.4f}, "
+                  f"{launches:.0f} launches [{card}]")
+    del half, static, engine
+
+    # --- f32 channel masks, card against CPU --------------------------------
+    x = images[:REGNET_MASK_IMAGES].float()
+    with torch.no_grad():
+        for mk in channel_maskers(model32):
+            mk.fc.bias.zero_()  # decisions near one half
+    cpu = lad_regnet_y_1_6gf(**REGNET_KW, device="cpu").eval()
+    cpu.load_state_dict(model32.state_dict())
+    on_card = recorded_channel_masks(model32, x)
+    on_cpu = recorded_channel_masks(cpu, x.cpu())
+    agree = (on_card == on_cpu).float().mean().item()
+    print(f"RegNetY-1.6GF f32 channel masks, card vs CPU: {agree:.6f} of "
+          f"{on_card.numel()} decisions agree (bound {MASK_AGREE_MIN}); "
+          f"density {on_card.mean().item():.4f}")
+    if agree < MASK_AGREE_MIN:
+        raise AssertionError("RegNet f32 masks disagree with the CPU's")
+    del model32, cpu, model
+    regnet_train(dev, card)
+
+
+def regnet_train(dev, card):
+    from laudnet_tpu_torch.train import main as train_main
+
+    with tempfile.TemporaryDirectory() as out_dir:
+        best = train_main.main(REGNET_TRAIN_ARGV + [str(REGNET_TRAIN_STEPS),
+                                                    "--train_url", out_dir])
+        with open(f"{out_dir}/log.txt") as f:
+            header, row = (line.strip().split(",") for line in f.readlines())
+        log = open(f"{out_dir}/train.log").read()
+        density = open(f"{out_dir}/all_density_latest.txt").read().split(
+            "\n")
+        wrote = sorted(os.listdir(f"{out_dir}/ckpt"))
+    full = [ln for ln in log.splitlines() if "full_flops" in ln]
+    print(f"train.main lad_regnet_y_1_6gf: best top1 {best:.4f}; "
+          f"{full[0] if full else ''}; log.txt {dict(zip(header, row))}; "
+          f"density rows {len([d for d in density if d.strip()])}; "
+          f"checkpoint files {wrote}")
+    if (not all(math.isfinite(float(v)) for v in row) or "nan" in log
+            or f"step_{REGNET_TRAIN_STEPS}.pt" not in wrote):
+        raise AssertionError("train.main lad_regnet_y_1_6gf: a metric is not "
+                             "finite or no checkpoint was written")
+
+    args = train_main.parse_args(REGNET_TRAIN_ARGV + [str(TRAIN_STEPS)])
+    tr = train_main.build_training(args, lambda *a, **k: None)
+    images, labels = next(train_main.synthetic_batches(B, IMG, 1000, 1,
+                                                       seed=0))
+    x, y = tr.to_device(images, labels)
+    metrics = [{k: float(v) for k, v in tr.train_step(tr.state, x, y).items()}
+               for _ in range(TRAIN_STEPS)]
+    for i, m in enumerate(metrics):
+        print(f"RegNet train step {i}: " + ", ".join(
+            f"{k} {m[k]:.6g}" for k in LOSS_PARTS + ("act_rate", "top1", "lr",
+                                                     "temperature")))
+        if not all(math.isfinite(m[k]) for k in LOSS_PARTS):
+            raise AssertionError(f"RegNet train step {i}: a loss part is not "
+                                 "finite")
+    if not metrics[-1]["loss"] < metrics[0]["loss"]:
+        raise AssertionError("the RegNet loss did not fall on a repeated "
+                             f"batch: {metrics[0]['loss']} -> "
+                             f"{metrics[-1]['loss']}")
+    torch.cuda.reset_peak_memory_stats()
+    step = lambda: tr.train_step(tr.state, x, y)
+    ms = time_ms(step, reps=5, warmup=1)
+    peak = torch.cuda.max_memory_allocated()
+    busy, launches = device_busy_ms(step, 2)
+    print(f"RegNet train step (LAUD-RegNetY-1.6GF channel 2-2-2-2 + static "
+          f"RegNetY-1.6GF teacher, bf16 compute, lr_mult 0.1, bs{B}): "
+          f"{ms:.4f} ms, {B / (ms / 1e3):.1f} img/s; {busy:.4f} ms of "
+          f"kernels, idle share {max(0.0, 1 - busy / ms):.4f}, "
+          f"{launches:.0f} launches a step; peak memory "
+          f"{peak / 2 ** 30:.4f} GiB [{card}]")
+
+
+def port_kernel(name):
+    """A profiler kernel name of the port's own (`csrc/`): every kernel
+    there is defined in a top-level anonymous namespace, PyTorch's and the
+    libraries' are not (``at::native::(anonymous namespace)::...``)."""
+    return name.removeprefix("void ").startswith("(anonymous namespace)::")
+
+
+def phase_aot(dev, card):
+    """Exports, saves and loads the served models through `infer/aot.py`,
+    then serves every artifact in one fresh process that has no model code
+    (`tools/serve_artifact.py`), and holds its logits and the port's
+    kernels it launches (`port_kernel`) to the live models'; PyTorch's own
+    kernels are counted beside them. Expected: bit for bit the same logits
+    (the same kernels on the same inputs and weights, in another
+    process)."""
+    from laudnet_tpu_torch.infer import aot
+
+    bf16 = torch.bfloat16
+    images = torch.randn(B, IMG, IMG, 3, device=dev,
+                         generator=torch.Generator(dev).manual_seed(10))
+    _, deit = model_pair(laud_deit_small, dev, 0)
+    fused = laud_deit_small(layer_skip=False, attn_impl="fused",
+                            generator=torch.Generator(dev).manual_seed(11))
+    fused = fused.to(bf16).eval()
+    reg = regnet(dev, compute_dtype=bf16).eval()
+    close_half_the_groups(reg)
+    # name, live forward (a model is saved with `save_serving_artifact`),
+    # the kernel it must launch
+    forms = (
+        ("deit_block_dense", build_fused_vit(deit), "fused_vit_block"),
+        ("deit_block_snapped", build_fused_vit(
+            deit, token_capacity=NOMINAL, snap_capacities=True),
+         "fused_vit_segment"),
+        ("deit_block_int8", build_fused_vit(deit, int8=True),
+         "fused_vit_block_int8"),
+        ("laudvit_fused", lambda x: fused(x.to(bf16), 0.1).logits,
+         "fused_vit_attention"),
+        ("regnet_y_1_6gf", reg, None),
+    )
+    with tempfile.TemporaryDirectory(dir=os.getcwd()) as tmp:
+        torch.save(images, f"{tmp}/images.pt")
+        live, paths = {}, []
+        for name, fwd, kernel in forms:
+            t0 = time.perf_counter()
+            if isinstance(fwd, torch.nn.Module):
+                path = aot.save_serving_artifact(f"{tmp}/{name}", fwd,
+                                                 tuple(images.shape))
+            else:
+                path = f"{tmp}/{name}.pt2"
+                with open(path, "wb") as f:
+                    f.write(aot.export_serving_fn(fwd, tuple(images.shape),
+                                                  device=dev))
+            secs = time.perf_counter() - t0
+            call = ((lambda m=fwd: m(images, 0.1).logits)
+                    if isinstance(fwd, torch.nn.Module) else
+                    (lambda f=fwd: f(images)))
+            with torch.no_grad():
+                logits, delta = counted(call)
+                live[name] = (logits.float().cpu(),
+                              serve_artifact.kernel_counts(call), delta)
+            if kernel is not None and not delta[kernel] > 0:
+                raise AssertionError(f"AOT {name}: the live model ran no "
+                                     f"{kernel}")
+            paths.append(path)
+            print(f"AOT {name}: exported and saved in {secs:.2f} s, "
+                  f"{os.path.getsize(path) / 2 ** 20:.1f} MiB")
+        # one fresh process serves them all, after the exports: two
+        # processes tracing the card at once lose profiler events
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "laudnet_tpu_torch.tools.serve_artifact",
+             f"{tmp}/images.pt", f"{tmp}/out"] + paths,
+            capture_output=True, text=True)
+        if proc.returncode:
+            raise AssertionError(f"serve_artifact failed:\n{proc.stderr}")
+        print(f"AOT: the fresh process served {len(paths)} artifacts in "
+              f"{time.perf_counter() - t0:.1f} s")
+        lines = proc.stdout.strip().splitlines()
+        for row in map(json.loads, lines):
+            name = row["name"]
+            want, want_kernels, _ = live[name]
+            got = torch.load(f"{tmp}/out/{name}.pt", weights_only=True)
+            diff = (got.float() - want).abs().max().item()
+            ours = {k: n for k, n in row["kernels"].items() if port_kernel(k)}
+            want_ours = {k: n for k, n in want_kernels.items()
+                         if port_kernel(k)}
+            model_code = [m for m in row["port_modules"]
+                          if m.startswith("laudnet_tpu_torch.models")]
+            print(f"AOT {name}: loaded program vs live model, largest logit "
+                  f"difference {diff:.6g} (bound 0: bit for bit); the port's "
+                  f"kernels {sum(ours.values())} a call, live "
+                  f"{sum(want_ours.values())}, the same by name and count "
+                  f"{ours == want_ours}; all kernels "
+                  f"{sum(row['kernels'].values())}, live "
+                  f"{sum(want_kernels.values())}; another batch refused "
+                  f"{row['refused_other_batch']}; model modules imported "
+                  f"{model_code}")
+            if row["kernels"] != want_kernels:
+                names = set(row["kernels"]) | set(want_kernels)
+                print("  kernels that differ (loaded, live): " + "; ".join(
+                    f"{k[:90]} {row['kernels'].get(k)} {want_kernels.get(k)}"
+                    for k in sorted(names)
+                    if row["kernels"].get(k) != want_kernels.get(k)))
+            if (diff != 0 or ours != want_ours or model_code
+                    or not row["refused_other_batch"]):
+                raise AssertionError(f"AOT {name}: the loaded program is not "
+                                     "the live model's")
+    del deit, fused, reg
+
+    # --- the host cost of the registered op ---------------------------------
+    call, launch, dispatch = probe_host.wrapper_host_s(dev)
+    print(f"fused_vit_block host cost (DeiT-S bs{B}): {call * 1e6:.2f} us a "
+          f"call, {launch * 1e6:.2f} us a launch; the registered op adds "
+          f"{dispatch * 1e6:.2f} us a call over its CUDA implementation "
+          f"called directly (the ctypes call of earlier builds) [{card}]")
+
+
+def phase_simulator():
+    """The GPU roofline simulator's CLI, as a user runs it, in processes
+    that import no JAX: two at once."""
+    argvs = (["resnet50", "--hardware", "v100"],
+             ["deit_small", "--plan", ",".join(map(str, NOMINAL))])
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "laudnet_tpu_torch.sim.cli", *argv],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for argv in argvs]
+    for argv, proc in zip(argvs, procs):
+        out, err = proc.communicate()
+        print(f"sim.cli {' '.join(argv)} (rc {proc.returncode}, "
+              f"{time.perf_counter() - t0:.1f} s):")
+        print("  " + out.strip().replace("\n", "\n  "))
+        if proc.returncode or ("ms/batch" not in out
+                               and "mode     :" not in out):
+            raise AssertionError(f"sim.cli printed no prediction:\n{err}")
+
+
 REPLACES = {
     "fused_vit_block": "laudnet_tpu/ops/pallas/vit_block.py:303",
     "fused_vit_segment": "laudnet_tpu/ops/pallas/vit_block.py:472",
@@ -2553,6 +2881,13 @@ def main():
     if sys.argv[1:] == ["probes"]:
         phase_probes(card, full=True)
         print(f"probes passed in {time.perf_counter() - t0:.1f} s [{card}]")
+        return
+    if sys.argv[1:] == ["regnet"]:
+        phase_regnet(dev, card)
+        phase_aot(dev, card)
+        phase_simulator()
+        print(f"RegNet, AOT and simulator phases passed in "
+              f"{time.perf_counter() - t0:.1f} s [{card}]")
         return
     if sys.argv[1:] == ["engine"]:
         phase_engine(dev, card)
@@ -2589,6 +2924,12 @@ def main():
     timed("probes")
     phase_engine(dev, card)
     timed("serving engine")
+    phase_regnet(dev, card)
+    timed("RegNet")
+    phase_aot(dev, card)
+    timed("AOT artifacts")
+    phase_simulator()
+    timed("simulator")
     launches = MAIN_PATH_LAUNCHES
     kernels = []
     for name, rows in results.items():

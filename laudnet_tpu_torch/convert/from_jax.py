@@ -1,5 +1,5 @@
 """Loads flax variables into the port's models (`LAUDViT`, `LAUDResNet`,
-`ResNet`).
+`ResNet`, `LAUDRegNet`).
 
 Takes the JAX ``variables`` dict (``params`` and, for the CNNs,
 ``batch_stats``) with numpy leaves, or a bare ``params`` tree, and fills
@@ -7,14 +7,17 @@ the port model strictly: every flax leaf is consumed and every port
 parameter and BatchNorm statistic is set, or it raises. Conversions:
 
 * Dense ``kernel`` (in, out) -> Linear ``weight`` (out, in);
-* Conv ``kernel`` HWIO -> Conv2d ``weight`` OIHW;
+* Conv ``kernel`` HWIO -> Conv2d ``weight`` OIHW (a grouped kernel
+  (kh, kw, in/g, out) -> (out, in/g, kh, kw), the same transpose);
 * LayerNorm and BatchNorm ``scale``/``bias`` -> ``weight``/``bias``;
 * ``batch_stats`` ``mean``/``var`` -> the buffers ``running_mean``/
   ``running_var`` (flax keeps the biased variance, and so does the port's
   `ops/norm.py::BatchNorm`, so the numbers carry over as they are);
 * the CNN blocks keep their flax names (``layer{s}_{b}``,
   ``downsample_conv``, ``downsample_bn``, ``masker_spatial``,
-  ``masker_channel``);
+  ``masker_channel``; the RegNet's ``stem_conv``, ``stem_bn``,
+  ``stage{s}_{b}`` with ``{a,b,c,proj}_conv``, ``{a,b,c,proj}_bn``,
+  ``se/fc1`` and ``se/fc2`` (1x1 convolutions with biases), and ``fc``);
 * ``cls_token``, ``pos_embed`` and biases as they are;
 * the ``t2t_stem`` subtree (``attn1``/``attn2``: ``norm1``, ``kqv``,
   ``proj``, ``norm2``, ``fc1``, ``fc2``, and ``project``) by the same

@@ -101,9 +101,10 @@ def _images(model, x):
 class ServingEngine:
     """Serving wrapper around a trained LAUD model.
 
-    ``model`` is a :class:`~laudnet_tpu_torch.models.laud_vit.LAUDViT` or
-    a :class:`~laudnet_tpu_torch.models.laud_resnet.LAUDResNet` with its
-    trained weights. ``temperature`` is the eval gate temperature
+    ``model`` is a :class:`~laudnet_tpu_torch.models.laud_vit.LAUDViT`, a
+    :class:`~laudnet_tpu_torch.models.laud_resnet.LAUDResNet` or a
+    :class:`~laudnet_tpu_torch.models.laud_regnet.LAUDRegNet` (served
+    dense-masked with a no-ranking plan) with its trained weights. ``temperature`` is the eval gate temperature
     (``t_last``). Before :meth:`calibrate` the engine serves the exact
     dense-masked graph; after it, the planned winner.
     """
@@ -309,11 +310,13 @@ class ServingEngine:
                                    for s in out.spatial_s3_img])
         act_rate = float(sum(rates) / len(rates)) if rates else 1.0
 
-        name = {16: "resnet50", 33: "resnet101"}.get(sum(m.layers))
+        layers = getattr(m, "layers", None)  # a LAUD-RegNet has none
+        name = ({16: "resnet50", 33: "resnet101"}.get(sum(layers))
+                if layers else None)
         if name is None:
-            # no analytic geometry for this depth: serve dense-masked and
-            # return an honest no-ranking plan instead of pricing the
-            # wrong network
+            # no analytic geometry for this network (a RegNet, or another
+            # depth): serve the model's own dense-masked graph and return
+            # an honest no-ranking plan instead of pricing the wrong one
             self.plan = ExecutionPlan(kind="resnet", mode="dense-masked",
                                       served="dense-masked", exact=True,
                                       predicted_speedup=1.0, ranking={})

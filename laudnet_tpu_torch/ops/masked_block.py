@@ -10,7 +10,8 @@ on the cell's ``patch x patch`` pixels and returns
 active beyond ``capacity`` in raster order) comes out as
 ``relu(identity)``. BN at eval folds into per-channel affines (`fold_bn`).
 
-`masked_bottleneck_tail` launches the CUDA kernels
+`masked_bottleneck_tail`, the registered op
+``laudnet::masked_bottleneck_tail``, launches the CUDA kernels
 (`csrc/masked_block.cu`: the cell selection, then the tail) for CUDA
 tensors and runs `reference_masked_bottleneck_tail`, the plain PyTorch
 version, for CPU tensors only. Both round where the TPU kernel rounds: the
@@ -27,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from laudnet_tpu_torch.ops import sparse
+from laudnet_tpu_torch.ops.library import register
 
 # csrc/masked_block.cu::FUSED_MAX_C: up to this C the tail keeps its
 # intermediate in shared memory; above it, in a scratch the wrapper gives
@@ -254,6 +256,26 @@ def _launch(x1, identity, mask_cells, w2, a2, b2, w3, a3, b3, patch,
     return out if cop == co else out[..., :co]
 
 
+def _tail_cpu(x1, identity, mask_cells, w2, a2, b2, w3, a3, b3, patch,
+              capacity):
+    return reference_masked_bottleneck_tail(
+        x1, identity, mask_cells, w2, a2, b2, w3, a3, b3, patch=patch,
+        capacity=capacity)
+
+
+def _tail_cuda(x1, identity, mask_cells, w2, a2, b2, w3, a3, b3, patch,
+               capacity):
+    return _launch(x1, identity, mask_cells, w2, a2, b2, w3, a3, b3, patch,
+                   capacity)
+
+
+_tail_op = register(
+    "masked_bottleneck_tail(Tensor x1, Tensor identity, Tensor mask_cells, "
+    "Tensor w2, Tensor a2, Tensor b2, Tensor w3, Tensor a3, Tensor b3, "
+    "int patch, int capacity) -> Tensor", _tail_cpu, _tail_cuda,
+    lambda x1, identity, *_: identity.new_empty(identity.shape))
+
+
 def masked_bottleneck_tail(x1: torch.Tensor, identity: torch.Tensor,
                            mask_cells: torch.Tensor, w2, a2, b2, w3, a3, b3,
                            *, patch: int, capacity: int) -> torch.Tensor:
@@ -265,20 +287,17 @@ def masked_bottleneck_tail(x1: torch.Tensor, identity: torch.Tensor,
     (3, 3, C, C) HWIO; ``a2``/``b2``: folded bn2; ``w3``: (C, Co);
     ``a3``/``b3``: folded bn3; ``capacity``: patch slots per image.
 
-    CUDA tensors launch the kernels (two launches: the selection and the
-    tail): bf16 or f32 (x1, identity, w2 and w3 of one type), any C and Co
-    (ragged widths zero-padded to a multiple of 8 and the output sliced
-    back: a view), any patch that tiles H and W, any B, any capacity from
-    1 to Hm * Wm; anything else raises. CPU tensors of any float type run
-    the plain version. Eval only: there is no backward."""
-    if x1.device.type == "cpu":
-        return reference_masked_bottleneck_tail(
-            x1, identity, mask_cells, w2, a2, b2, w3, a3, b3, patch=patch,
-            capacity=capacity)
-    if x1.device.type != "cuda":
+    The registered op ``laudnet::masked_bottleneck_tail``. CUDA tensors
+    launch the kernels (two launches: the selection and the tail): bf16 or
+    f32 (x1, identity, w2 and w3 of one type), any C and Co (ragged widths
+    zero-padded to a multiple of 8 and the output sliced back: a view), any
+    patch that tiles H and W, any B, any capacity from 1 to Hm * Wm;
+    anything else raises. CPU tensors of any float type run the plain
+    version. Eval only: there is no backward."""
+    if x1.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no kernel for device {x1.device}")
-    return _launch(x1, identity, mask_cells, w2, a2, b2, w3, a3, b3, patch,
-                   capacity)
+    return _tail_op(x1, identity, mask_cells, w2, a2, b2, w3, a3, b3, patch,
+                    capacity)
 
 
 masked_bottleneck_tail.launches = 0

@@ -13,7 +13,10 @@ and backward are one ``torch.autograd.Function``: when autograd needs the
 result's gradient, the forward kernel also writes the softmax's row
 statistics (`stats`), which the backward kernel reads instead of
 recomputing them. On CPU tensors it runs the plain forward and the plain
-backward, which recomputes the softmax.
+backward, which recomputes the softmax. The forward and the backward are
+the registered ops ``laudnet::vit_attention`` and
+``laudnet::vit_attention_bwd`` (`ops/library.py`), the second the first's
+autograd formula, so that `torch.export` records each as one node.
 
 Row statistics (``stats``): f32 (B, H, 2, L), ``[:, :, 0]`` the row max m
 of the scaled, masked scores and ``[:, :, 1]`` the row sum
@@ -23,6 +26,8 @@ l = sum(exp(s - m)); the softmax is exp(s - m) / l.
 from __future__ import annotations
 
 import torch
+
+from laudnet_tpu_torch.ops.library import LIB, register
 
 NEG = -1e9
 DH = 64         # head width the kernels take
@@ -204,42 +209,98 @@ def _launch_bwd(qkv, key_mask, head_mask, g, num_heads, sm_scale, stats):
     return dqkv, dhead
 
 
-class _FusedViTAttention(torch.autograd.Function):
-    """Forward B4, backward B5; the plain versions on CPU tensors."""
+def _no_stats(qkv):
+    return qkv.new_empty((0,), dtype=torch.float32)
 
-    @staticmethod
-    def forward(ctx, qkv, key_mask, head_mask, num_heads, sm_scale,
-                needs_grad):
-        ctx.num_heads, ctx.sm_scale = num_heads, sm_scale
-        stats = None
-        if qkv.device.type == "cpu":
-            out = reference_vit_attention(qkv, key_mask, head_mask,
-                                          num_heads, sm_scale)
-        elif needs_grad:
-            out, stats = _launch_fwd(qkv, key_mask, head_mask, num_heads,
-                                     sm_scale, return_stats=True)
-        else:
-            out = _launch_fwd(qkv, key_mask, head_mask, num_heads, sm_scale)
-        ctx.save_for_backward(qkv, key_mask, head_mask, stats)
-        return out
 
-    @staticmethod
-    def backward(ctx, g):
-        qkv, key_mask, head_mask, stats = ctx.saved_tensors
-        if qkv.device.type == "cpu":
-            dqkv, dhead = reference_vit_attention_bwd(
-                qkv, key_mask, head_mask, g, ctx.num_heads, ctx.sm_scale)
-        else:
-            dqkv, dhead = _launch_bwd(qkv, key_mask, head_mask, g,
-                                      ctx.num_heads, ctx.sm_scale, stats)
-        # the additive key mask removes keys; it is no differentiable gate
-        return dqkv, None, dhead, None, None, None
+def _attention_cpu(qkv, key_mask, head_mask, num_heads, sm_scale,
+                   with_stats):
+    # the plain backward recomputes the softmax: no row statistics
+    return (reference_vit_attention(qkv, key_mask, head_mask, num_heads,
+                                    sm_scale), _no_stats(qkv))
+
+
+def _attention_cuda(qkv, key_mask, head_mask, num_heads, sm_scale,
+                    with_stats):
+    if with_stats:
+        return _launch_fwd(qkv, key_mask, head_mask, num_heads, sm_scale,
+                           return_stats=True)
+    return (_launch_fwd(qkv, key_mask, head_mask, num_heads, sm_scale),
+            _no_stats(qkv))
+
+
+def _attention_fake(qkv, key_mask, head_mask, num_heads, sm_scale,
+                    with_stats):
+    b, l, d3 = qkv.shape
+    stats = ((b, num_heads, 2, l) if with_stats and qkv.device.type != "cpu"
+             else (0,))
+    return (qkv.new_empty((b, l, d3 // 3)),
+            qkv.new_empty(stats, dtype=torch.float32))
+
+
+def _attention_bwd_cpu(qkv, key_mask, head_mask, g, stats, num_heads,
+                       sm_scale):
+    dqkv, dhead = reference_vit_attention_bwd(qkv, key_mask, head_mask, g,
+                                              num_heads, sm_scale)
+    return dqkv, _no_stats(qkv) if dhead is None else dhead
+
+
+def _attention_bwd_cuda(qkv, key_mask, head_mask, g, stats, num_heads,
+                        sm_scale):
+    dqkv, dhead = _launch_bwd(qkv, key_mask, head_mask, g, num_heads,
+                              sm_scale, stats)
+    return dqkv, _no_stats(qkv) if dhead is None else dhead
+
+
+def _attention_bwd_fake(qkv, key_mask, head_mask, g, stats, num_heads,
+                        sm_scale):
+    return qkv.new_empty(qkv.shape), (
+        _no_stats(qkv) if head_mask is None
+        else head_mask.new_empty(head_mask.shape))
+
+
+# B4 is the op ``laudnet::vit_attention`` (`ops/library.py`): ``(out,
+# stats)``, ``stats`` the row statistics where ``with_stats`` asks for them
+# and an empty f32 tensor otherwise (always on the CPU). B5 is the op
+# ``laudnet::vit_attention_bwd``: ``(dqkv, dhead)``, ``dhead`` empty without
+# a head mask; it is B4's autograd formula, fed B4's row statistics.
+_attention_op = register(
+    "vit_attention(Tensor qkv, Tensor key_mask, Tensor? head_mask, "
+    "int num_heads, float sm_scale, bool with_stats) -> (Tensor, Tensor)",
+    _attention_cpu, _attention_cuda, _attention_fake)
+_attention_bwd_op = register(
+    "vit_attention_bwd(Tensor qkv, Tensor key_mask, Tensor? head_mask, "
+    "Tensor g, Tensor? stats, int num_heads, float sm_scale) -> "
+    "(Tensor, Tensor)", _attention_bwd_cpu, _attention_bwd_cuda,
+    _attention_bwd_fake)
+
+
+def _attention_setup(ctx, inputs, output):
+    qkv, key_mask, head_mask, num_heads, sm_scale, with_stats = inputs
+    ctx.num_heads, ctx.sm_scale = num_heads, sm_scale
+    stats = output[1]
+    ctx.mark_non_differentiable(stats)
+    ctx.save_for_backward(qkv, key_mask, head_mask,
+                          stats if stats.numel() else None)
+
+
+def _attention_backward(ctx, g, _):
+    qkv, key_mask, head_mask, stats = ctx.saved_tensors
+    dqkv, dhead = _attention_bwd_op(qkv, key_mask, head_mask, g, stats,
+                                    ctx.num_heads, ctx.sm_scale)
+    # the additive key mask removes keys; it is no differentiable gate
+    return dqkv, None, None if head_mask is None else dhead, None, None, None
+
+
+torch.library.register_autograd("laudnet::vit_attention", _attention_backward,
+                                setup_context=_attention_setup, lib=LIB)
 
 
 def fused_vit_attention(qkv: torch.Tensor, key_mask: torch.Tensor,
                         head_mask, num_heads: int,
                         sm_scale: float) -> torch.Tensor:
-    """Fused masked multi-head attention (B4a/B4 forward, B5 backward).
+    """Fused masked multi-head attention (B4a/B4 forward, B5 backward), the
+    registered op ``laudnet::vit_attention`` with B5 as its autograd.
     Arguments and result as `reference_vit_attention`, which CPU tensors
     run, with `reference_vit_attention_bwd` as their backward. CUDA tensors
     launch the kernels: bf16 or f32 qkv, heads of 64, any L; anything else
@@ -252,8 +313,8 @@ def fused_vit_attention(qkv: torch.Tensor, key_mask: torch.Tensor,
     needs_grad = torch.is_grad_enabled() and (
         qkv.requires_grad
         or (head_mask is not None and head_mask.requires_grad))
-    return _FusedViTAttention.apply(qkv, key_mask, head_mask, num_heads,
-                                    sm_scale, needs_grad)
+    return _attention_op(qkv, key_mask, head_mask, num_heads, sm_scale,
+                         needs_grad)[0]
 
 
 fused_vit_attention.launches = 0

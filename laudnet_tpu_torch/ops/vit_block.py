@@ -36,6 +36,7 @@ import dataclasses
 
 import torch
 
+from laudnet_tpu_torch.ops.library import register
 from laudnet_tpu_torch.ops.quant import (int8_linear, int_matmul,
                                         quantize_rows, quantize_weight)
 
@@ -568,6 +569,139 @@ def _route(x):
     return True
 
 
+# --- the registered ops ------------------------------------------------------
+# B1, B6 and B2 are ops of the ``laudnet`` namespace (`ops/library.py`). An
+# op's schema takes tensors, lists of tensors and scalars: a layer's
+# parameter dict travels as a flat list in the fixed key order below.
+
+LAYER_KEYS = tuple((m, k) for m in ("ln1", "qkv", "proj", "ln2", "fc1", "fc2")
+                   for k in ("weight", "bias"))
+INT8_LAYER_KEYS = tuple(
+    (m, k) for m in ("ln1", "qkv", "proj", "ln2", "fc1", "fc2")
+    for k in (("weight", "bias") if m.startswith("ln")
+              else ("weight_q", "scale", "bias")))
+POLICY_KEYS = (("token_policy", "weight"), ("token_policy", "bias"))
+
+
+def flatten_layer(p: dict, int8: bool = False) -> list:
+    """A layer's parameter dict as the ops' flat tensor list; raises on a
+    product whose keys are not the float (or, ``int8``, the W8A8) ones."""
+    keys = INT8_LAYER_KEYS if int8 else LAYER_KEYS
+    kinds = {"weight_q", "scale", "bias"} if int8 else {"weight", "bias"}
+    for name in ("qkv", "proj", "fc1", "fc2"):
+        if set(p[name]) != kinds:
+            raise TypeError(f"{name} must hold {sorted(kinds)}, got "
+                            f"{sorted(p[name])}")
+    flat = [p[m][k] for m, k in keys]
+    if "token_policy" in p:
+        flat += [p[m][k] for m, k in POLICY_KEYS]
+    return flat
+
+
+def unflatten_layer(flat, int8: bool = False) -> dict:
+    """The inverse of `flatten_layer` (a token policy where the list holds
+    its two tensors)."""
+    keys = INT8_LAYER_KEYS if int8 else LAYER_KEYS
+    if len(flat) > len(keys):
+        keys = keys + POLICY_KEYS
+    p: dict = {}
+    for (m, k), t in zip(keys, flat):
+        p.setdefault(m, {})[k] = t
+    return p
+
+
+def _segment_layers(flat, has_policy):
+    layers, i = [], 0
+    for policy in has_policy:
+        n = len(LAYER_KEYS) + (len(POLICY_KEYS) if policy else 0)
+        layers.append(unflatten_layer(flat[i:i + n]))
+        i += n
+    return layers
+
+
+def _vit_block_cpu(x, key_mask, row_mask, params, num_heads, head_gate,
+                   ln_eps, fast_math):
+    return fused_vit_block_reference(
+        x, key_mask, row_mask, unflatten_layer(params), num_heads=num_heads,
+        head_gate=head_gate, ln_eps=ln_eps, fast_math=fast_math)
+
+
+def _vit_block_cuda(x, key_mask, row_mask, params, num_heads, head_gate,
+                    ln_eps, fast_math):
+    from laudnet_tpu_torch.ops._build import library
+
+    p = unflatten_layer(params)
+    _check_cuda(x, (key_mask, row_mask), [p], num_heads, head_gate)
+    b, l, _ = x.shape
+    out, _ = _layer_cuda(library(), x, _f32(key_mask.reshape(b, l)),
+                         _f32(row_mask.reshape(b, l)), p, num_heads, ln_eps,
+                         fast_math, head_gate=_f32(head_gate))
+    fused_vit_block.launches += 1
+    return out
+
+
+def _vit_block_int8_cpu(x, key_mask, row_mask, qparams, num_heads,
+                        head_gate, ln_eps):
+    return fused_vit_block_int8_reference(
+        x, key_mask, row_mask, unflatten_layer(qparams, int8=True),
+        num_heads=num_heads, head_gate=head_gate, ln_eps=ln_eps)
+
+
+def _vit_block_int8_cuda(x, key_mask, row_mask, qparams, num_heads,
+                         head_gate, ln_eps):
+    from laudnet_tpu_torch.ops._build import library
+
+    p = unflatten_layer(qparams, int8=True)
+    _check_cuda(x, (key_mask, row_mask), [p], num_heads, head_gate,
+                int8=True)
+    b, l, _ = x.shape
+    out = _layer_int8_cuda(library(), x, _f32(key_mask.reshape(b, l)),
+                           _f32(row_mask.reshape(b, l)), p, num_heads,
+                           ln_eps, head_gate=_f32(head_gate))
+    fused_vit_block_int8.launches += 1
+    return out
+
+
+def _vit_segment_cpu(x, token_mask, params, has_policy, num_heads, ln_eps,
+                     fast_math):
+    out, mask = fused_vit_segment_reference(
+        x, token_mask, _segment_layers(params, has_policy),
+        num_heads=num_heads, ln_eps=ln_eps, fast_math=fast_math)
+    # an op's outputs may not alias its inputs (no layers, a f32 mask)
+    return (out.clone() if out is x else out,
+            mask.clone() if mask is token_mask else mask)
+
+
+def _vit_segment_cuda(x, token_mask, params, has_policy, num_heads, ln_eps,
+                      fast_math):
+    from laudnet_tpu_torch.ops._build import library
+
+    layers = _segment_layers(params, has_policy)
+    _check_cuda(x, (token_mask,), layers, num_heads)
+    out = _segment_cuda(library(), x, token_mask, layers, num_heads, ln_eps,
+                        fast_math)
+    fused_vit_segment.launches += 1
+    return out
+
+
+_vit_block_op = register(
+    "vit_block(Tensor x, Tensor key_mask, Tensor row_mask, Tensor[] params, "
+    "int num_heads, Tensor? head_gate, float ln_eps, bool fast_math) -> "
+    "Tensor", _vit_block_cpu, _vit_block_cuda,
+    lambda x, *_: x.new_empty(x.shape))
+_vit_block_int8_op = register(
+    "vit_block_int8(Tensor x, Tensor key_mask, Tensor row_mask, "
+    "Tensor[] qparams, int num_heads, Tensor? head_gate, float ln_eps) -> "
+    "Tensor", _vit_block_int8_cpu, _vit_block_int8_cuda,
+    lambda x, *_: x.new_empty(x.shape))
+_vit_segment_op = register(
+    "vit_segment(Tensor x, Tensor token_mask, Tensor[] params, "
+    "bool[] has_policy, int num_heads, float ln_eps, bool fast_math) -> "
+    "(Tensor, Tensor)", _vit_segment_cpu, _vit_segment_cuda,
+    lambda x, token_mask, *_: (x.new_empty(x.shape), token_mask.new_empty(
+        token_mask.shape, dtype=torch.float32)))
+
+
 def fused_vit_block(x, key_mask, row_mask, params, *, num_heads: int,
                     head_gate=None, ln_eps: float = 1e-6,
                     fast_math: bool = False, variant=None):
@@ -575,12 +709,18 @@ def fused_vit_block(x, key_mask, row_mask, params, *, num_heads: int,
     (B, 1, L) 1/0 over keys; ``row_mask``: (B, L, 1) 1/0 over rows (both
     branch outputs are multiplied by it); ``head_gate``: optional (B, H)
     0/1 gate on each head's attention output. Returns (B, L, D) in x's
-    dtype. CPU tensors run `fused_vit_block_reference`; CUDA tensors run
-    the kernels (bf16). ``variant`` (a `BlockVariant`) replaces the body
-    ``fast_math`` picks: the block-budget probe's layer (P1,
-    `tools/probe_block_budget.py::build_block`), whose launches count in
-    ``fused_vit_block.variant_launches`` instead of ``.launches``."""
-    if not _route(x):
+    dtype. The op ``laudnet::vit_block``: CPU tensors run
+    `fused_vit_block_reference`; CUDA tensors run the kernels (bf16).
+    ``variant`` (a `BlockVariant`) replaces the body ``fast_math`` picks:
+    the block-budget probe's layer (P1,
+    `tools/probe_block_budget.py::build_block`), a plain call that is never
+    exported, whose launches count in ``fused_vit_block.variant_launches``
+    instead of ``.launches``."""
+    on_card = _route(x)
+    if variant is None:
+        return _vit_block_op(x, key_mask, row_mask, flatten_layer(params),
+                             num_heads, head_gate, ln_eps, fast_math)
+    if not on_card:
         return fused_vit_block_reference(x, key_mask, row_mask, params,
                                          num_heads=num_heads,
                                          head_gate=head_gate, ln_eps=ln_eps,
@@ -589,18 +729,14 @@ def fused_vit_block(x, key_mask, row_mask, params, *, num_heads: int,
 
     _check_cuda(x, (key_mask, row_mask), [params], num_heads, head_gate)
     b, l, _ = x.shape
-    if (variant is not None and variant.softmax in ("linear", "nomax")
-            and l > MAX_LEN_ABLATION):
+    if variant.softmax in ("linear", "nomax") and l > MAX_LEN_ABLATION:
         raise ValueError(f"the {variant.softmax!r} softmax ablation takes "
                          f"L <= {MAX_LEN_ABLATION}, got L={l}")
     out, _ = _layer_cuda(library(), x, _f32(key_mask.reshape(b, l)),
                          _f32(row_mask.reshape(b, l)), params, num_heads,
                          ln_eps, fast_math, head_gate=_f32(head_gate),
                          variant=variant)
-    if variant is None:
-        fused_vit_block.launches += 1
-    else:
-        fused_vit_block.variant_launches += 1
+    fused_vit_block.variant_launches += 1
     return out
 
 
@@ -616,23 +752,14 @@ def fused_vit_block_int8(x, key_mask, row_mask, qparams, *, num_heads: int,
     dynamic activation scales computed right before each product;
     attention, LayerNorm, residuals and GELU stay float. Inexact against
     `fused_vit_block` by the quantisation of the products' operands.
-    Arguments otherwise as `fused_vit_block`. CPU tensors run
+    Arguments otherwise as `fused_vit_block`. The op
+    ``laudnet::vit_block_int8``: CPU tensors run
     `fused_vit_block_int8_reference`; CUDA tensors run the kernels
     (bf16)."""
-    if not _route(x):
-        return fused_vit_block_int8_reference(
-            x, key_mask, row_mask, qparams, num_heads=num_heads,
-            head_gate=head_gate, ln_eps=ln_eps)
-    from laudnet_tpu_torch.ops._build import library
-
-    _check_cuda(x, (key_mask, row_mask), [qparams], num_heads, head_gate,
-                int8=True)
-    b, l, _ = x.shape
-    out = _layer_int8_cuda(library(), x, _f32(key_mask.reshape(b, l)),
-                           _f32(row_mask.reshape(b, l)), qparams, num_heads,
-                           ln_eps, head_gate=_f32(head_gate))
-    fused_vit_block_int8.launches += 1
-    return out
+    _route(x)
+    return _vit_block_int8_op(x, key_mask, row_mask,
+                              flatten_layer(qparams, int8=True), num_heads,
+                              head_gate, ln_eps)
 
 
 fused_vit_block_int8.launches = 0
@@ -645,22 +772,16 @@ def fused_vit_segment(x, token_mask, params_list, *, num_heads: int,
     ``token_policy`` computes its eval gate from its entry x (``logit0 >=
     logit1`` on bf16-rounded logits, class token pinned) and composes it
     into the running mask before its attention. Returns ``(out,
-    token_mask_out)``. On CUDA the first layer's gate runs in its LN1
-    launch and every later layer's gate and LN1 in the epilogue of the
-    fc2 before it: 1 + 5n launches for n layers (`_layer_cuda`); x is
+    token_mask_out)``. The op ``laudnet::vit_segment``: CPU tensors run
+    `fused_vit_segment_reference`. On CUDA the first layer's gate runs in
+    its LN1 launch and every later layer's gate and LN1 in the epilogue of
+    the fc2 before it: 1 + 5n launches for n layers (`_layer_cuda`); x is
     rounded to x's dtype after every layer (`vit_block.py:617`)."""
-    if not _route(x):
-        return fused_vit_segment_reference(x, token_mask, params_list,
-                                           num_heads=num_heads,
-                                           ln_eps=ln_eps,
-                                           fast_math=fast_math)
-    from laudnet_tpu_torch.ops._build import library
-
-    _check_cuda(x, (token_mask,), params_list, num_heads)
-    out = _segment_cuda(library(), x, token_mask, params_list, num_heads,
-                        ln_eps, fast_math)
-    fused_vit_segment.launches += 1
-    return out
+    _route(x)
+    flat = [t for p in params_list for t in flatten_layer(p)]
+    return _vit_segment_op(x, token_mask, flat,
+                           ["token_policy" in p for p in params_list],
+                           num_heads, ln_eps, fast_math)
 
 
 def _segment_cuda(lib, x, token_mask, params_list, num_heads, ln_eps,

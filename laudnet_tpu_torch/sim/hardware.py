@@ -1,15 +1,79 @@
-"""The H100 for the latency model (`sim/h100.py`).
+"""Hardware specifications for the latency models.
 
-`HopperSpec` holds the card's published peaks (NVIDIA's H100 SXM data
-sheet, dense rates at the 700 W limit) and the rates the port's own
-execution forms reach on it, each pinned from a run of a committed probe on
-an H100. The JAX package's `TPUSpec`, `TPU_PRESETS` and the GPU roofline
-presets are not copied: the port prices only what it runs, on this card.
+`HopperSpec` is the H100 for the serving planner's model (`sim/h100.py`):
+the card's published peaks (NVIDIA's H100 SXM data sheet, dense rates at
+the 700 W limit) and the rates the port's own execution forms reach on it,
+each pinned from a run of a committed probe on an H100.
+
+`DeviceSpec` and its five `GPU_PRESETS` (V100, RTX3090, RTX3060, Jetson TX2,
+Jetson Nano: the reference simulator's published targets) are the GPU
+roofline simulator's (`sim/roofline.py`, `sim/dynamic.py`, `sim/cli.py`),
+copied from `laudnet_tpu/sim/hardware.py:15-71`, which the port does not
+import. The JAX package's `TPUSpec` and `TPU_PRESETS` model TPU engines
+and are not copied.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
+
+
+@dataclass(frozen=True)
+class DeviceSpec:
+    """A multi-core SIMT-style device (GPU) for the roofline model."""
+
+    name: str
+    n_cores: int  # streaming multiprocessors
+    lanes: int  # fp32 lanes per core
+    frequency: float  # Hz
+    mem_bandwidth: float  # bytes/s
+    cache_speed_frac: float = 4.0  # L2 bandwidth as multiple of HBM
+    issue_cycles: float = 4.0  # pipeline slots per lane (fp32_cycles)
+    mem_concurrent: float = 8.0  # fp32 words per coalesced sector
+    memory_efficiency: float = 0.9
+    launch_time: float = 8e-6  # per-kernel launch overhead, seconds
+    latency_mode: str = "add"  # 'add' | 'max' of compute/memory
+    batch_size: int = 1
+
+    @property
+    def mem_fp32_bandwidth(self) -> float:
+        return self.mem_bandwidth / 4.0
+
+    @property
+    def cache_fp32_bandwidth(self) -> float:
+        return self.mem_fp32_bandwidth * self.cache_speed_frac
+
+    @property
+    def peak_parallelism(self) -> float:
+        return self.lanes * self.issue_cycles
+
+    def with_batch(self, batch_size: int) -> "DeviceSpec":
+        return replace(self, batch_size=batch_size)
+
+
+# The reference simulator's GPU targets (`eval_example.py:135-156`).
+GPU_PRESETS = {
+    "v100": DeviceSpec(
+        "v100", n_cores=80, lanes=64, frequency=1.5e9,
+        mem_bandwidth=700e9, batch_size=128,
+    ),
+    "rtx3090": DeviceSpec(
+        "rtx3090", n_cores=82, lanes=128, frequency=1.25e9,
+        mem_bandwidth=936e9, cache_speed_frac=1.0, batch_size=128,
+    ),
+    "rtx3060": DeviceSpec(
+        "rtx3060", n_cores=28, lanes=128, frequency=1.777e9,
+        mem_bandwidth=360e9, batch_size=128,
+    ),
+    "tx2": DeviceSpec(
+        "tx2", n_cores=2, lanes=128, frequency=1.3e9,
+        mem_bandwidth=59.7e9, batch_size=1,
+    ),
+    "nano": DeviceSpec(
+        "nano", n_cores=1, lanes=128, frequency=921e6,
+        mem_bandwidth=25.6e9, batch_size=1,
+    ),
+}
 
 
 @dataclass(frozen=True)

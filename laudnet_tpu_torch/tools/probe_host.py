@@ -12,6 +12,10 @@ of the same names):
   a five-layer `fused_vit_segment` call (26) at DeiT-S bs128 on the host
   clock, issued while the card works through a spinning kernel queued
   first (so the host never waits on it), the line through the two;
+* ``op_dispatch_us``: host microseconds the registered op
+  (``laudnet::vit_block``, `torch.library`) adds to a `fused_vit_block`
+  call: the wrapper against the op's CUDA implementation called
+  directly, on the same layer, the same way;
 * ``device_launch_us``: the card's microseconds per kernel in a chain of
   back-to-back tiny kernels (CUDA events), queued behind a spinning kernel
   (``torch.cuda._sleep``) so that the host is ahead: the gap a launch adds
@@ -108,13 +112,15 @@ def _eager_host_launch_s(dev, batch=128, forwards=10):
     return times[len(times) // 2] / counted.n
 
 
-def _wrapper_host_s(dev, calls=10):
+def wrapper_host_s(dev, calls=10):
     """Host seconds of the block engine's wrappers at DeiT-S bs128 (L =
     197), issued behind ``torch.cuda._sleep`` so the host never waits on
     the card: a call of `fused_vit_block` (one layer, 6 launches) and of
     `fused_vit_segment` (five layers, 26 launches), fitted as a cost per
-    call (checks, masks) plus a cost per launch (allocation, ctypes).
-    Returns (per call, per launch)."""
+    call (checks, masks) plus a cost per launch (allocation, ctypes); and
+    the same `fused_vit_block` call made on the op's CUDA implementation
+    directly, without the dispatcher. Returns (per call, per launch, the
+    op's dispatch per call)."""
     from laudnet_tpu_torch.ops import vit_block
 
     g = torch.Generator(dev).manual_seed(2)
@@ -155,8 +161,11 @@ def _wrapper_host_s(dev, calls=10):
     five = host(lambda: vit_block.fused_vit_segment(x, ones, [p] * 5,
                                                     num_heads=6,
                                                     fast_math=True))
+    flat = vit_block.flatten_layer(p)
+    direct = host(lambda: vit_block._vit_block_cuda(x, km, rm, flat, 6, None,
+                                                    1e-6, True))
     per_launch = (five - one) / (26 - 6)
-    return one - 6 * per_launch, per_launch
+    return one - 6 * per_launch, per_launch, one - direct
 
 
 def run(device="cuda") -> dict:
@@ -165,7 +174,7 @@ def run(device="cuda") -> dict:
         raise ValueError("the probe measures a CUDA card")
     g = torch.Generator(dev).manual_seed(0)
     tiny = torch.zeros(16, device=dev)
-    call, host = _wrapper_host_s(dev)
+    call, host, dispatch = wrapper_host_s(dev)
     device_gap = _queued_gap_s(tiny, 500)
     syncs = []
     for _ in range(50):
@@ -211,6 +220,7 @@ def run(device="cuda") -> dict:
     moved = (x1.numel() * (1 + halo) + ident.numel() * 2
              + patches.numel()) * 2
     out = {"host_launch_us": host * 1e6, "host_call_us": call * 1e6,
+           "op_dispatch_us": dispatch * 1e6,
            "device_launch_us": device_gap * 1e6,
            "eager_host_launch_us": _eager_host_launch_s(dev) * 1e6,
            "host_sync_us": syncs[len(syncs) // 2] * 1e6,

@@ -19,10 +19,18 @@ ResNet-50)::
     python -m laudnet_tpu_torch.train.main --arch uni_resnet50 --amp \
         --epochs 1 --steps_per_epoch 8 --batch_size 128
 
-The ViT family and the LAUD-ResNets train on synthetic batches. The
-LAUD-RegNet archs, ``--data_url``, ``--finetune_from``,
-``--teacher_path``, ``--tp/--fsdp/--pp`` and ``--dist_*`` are parsed and
-raise `NotImplementedError` naming the slice that brings them.
+or a LAUD-RegNet, distilled from the static RegNet of the same recipe
+(the repo's recipe for RegNetY-1.6GF, `train_scripts.sh`)::
+
+    python -m laudnet_tpu_torch.train.main --arch lad_regnet_y_1_6gf \
+        --dyn_mode channel-channel-channel-channel \
+        --channel_dyn_granularity 2-2-2-2 --lr_mult 0.1 --amp \
+        --epochs 1 --steps_per_epoch 8 --batch_size 128
+
+The ViT family, the LAUD-ResNets and the LAUD-RegNets train on synthetic
+batches. ``--data_url``, ``--finetune_from``, ``--teacher_path``,
+``--tp/--fsdp/--pp`` and ``--dist_*`` are parsed and raise
+`NotImplementedError` naming the slice that brings them.
 """
 
 from __future__ import annotations
@@ -154,8 +162,9 @@ def _refuse_later_slices(args) -> None:
             f"{what} belongs to {which} of the port, not to this one")
 
     family = arch_family(args.arch)
-    if family == "regnet":
-        later(f"--arch {args.arch}", "the RegNet slice")
+    if family == "regnet" and args.conv_impl != "dense":
+        raise SystemExit("--conv_impl int8_qat is LAUD-ResNet-only "
+                         "(QuantConv covers the ResNet conv set)")
     if family == "vit" and args.conv_impl != "dense":
         raise SystemExit("--conv_impl applies to LAUD-ResNets; for ViT QAT "
                          "use --vit_linear int8_qat")
@@ -272,6 +281,8 @@ def build_training(args, log=print) -> Training:
         teacher = ctor(token_skip=False, head_skip=False, layer_skip=False,
                        generator=gen(), **common)
     else:
+        common = (dict(conv_impl=args.conv_impl) if family == "resnet"
+                  else {})
         model = ctor(
             num_classes=args.num_classes, input_size=args.input_size,
             dyn_mode=_stage_list(args.dyn_mode),
@@ -285,18 +296,32 @@ def build_training(args, log=print) -> Training:
             channel_masker_layers=_stage_list(args.channel_masker_layers,
                                               int),
             reduction_ratio=_stage_list(args.masker_reduction, int),
-            conv_impl=args.conv_impl, compute_dtype=compute_dtype,
-            device=device, generator=gen())
-        # the dense ResNet of the same depth, frozen
-        teacher = models.ResNet(
-            layers=model.layers, num_classes=args.num_classes,
-            compute_dtype=compute_dtype, device=device, generator=gen())
+            compute_dtype=compute_dtype, device=device, generator=gen(),
+            **common)
+        teacher_kw = dict(num_classes=args.num_classes,
+                          compute_dtype=compute_dtype, device=device,
+                          generator=gen())
+        if family == "regnet":
+            # the static RegNet of the same recipe, frozen
+            teacher = models.regnet_static(args.arch[len("lad_regnet_"):],
+                                           input_size=args.input_size,
+                                           **teacher_kw)
+        else:
+            # the dense ResNet of the same depth, frozen
+            teacher = models.ResNet(layers=model.layers, **teacher_kw)
     teacher.requires_grad_(False)
 
     steps_per_epoch = args.steps_per_epoch or 10
     log("no --data_url: training on synthetic data (smoke mode)")
     if family == "vit":
         full_flops = vit_dense_flops(model, input_size=args.input_size)
+    elif family == "regnet":
+        # the static teacher's in-graph bookkeeping IS the dense count (all
+        # gates off: sparse == dense, the SE quirk included)
+        probe = torch.zeros((1, args.input_size, args.input_size, 3),
+                            device=device)
+        with torch.no_grad():
+            full_flops = float(teacher(probe).flops)
     else:
         full_flops = resnet_full_flops(model.layers,
                                        input_size=args.input_size,

@@ -248,3 +248,37 @@ def test_engine_prices_b4_in_the_graphs_dtype(vit, monkeypatch,
 def test_engine_refuses_a_mesh(vit):
     with pytest.raises(NotImplementedError, match="parallel"):
         ServingEngine(vit[0], mesh=object())
+
+
+def test_regnet_serves_dense_masked_with_the_no_ranking_plan():
+    """A LAUD-RegNet (no ``.layers``, no analytic geometry for its widths)
+    gets JAX's honest no-ranking plan and serves its own dense-masked
+    graph (`tests/test_engine.py::test_serving_engine_regnet_no_ranking_
+    plan`): the same plan on both sides, the same logits."""
+    from laudnet_tpu.models import laud_regnet as jrg
+    from laudnet_tpu_torch.models import laud_regnet as trg
+
+    kw = dict(num_classes=10, dyn_mode=("channel", "channel"),
+              spatial_mask_channel_group=(1, 1),
+              mask_spatial_granularity=(1, 1), channel_dyn_granularity=(1, 1),
+              channel_masker=("MLP", "MLP"), channel_masker_layers=(1, 1),
+              reduction_ratio=(16, 16))
+    p = dict(depths=(1, 1), widths=(24, 56), group_widths=(8, 8),
+             bottleneck_multipliers=(1.0, 1.0), se_ratio=0.25)
+    model = trg.LAUDRegNet(trg.RegNetParams(**p), **kw, device="cpu",
+                           generator=torch.Generator().manual_seed(1)).eval()
+    v = {"params": to_flax_tree(model),
+         "batch_stats": to_flax_batch_stats(model)}
+    x = np.random.default_rng(0).standard_normal((1, 32, 32, 3)).astype(
+        np.float32)
+    jengine = JEngine(jrg.LAUDRegNet(params_cfg=jrg.RegNetParams(**p), **kw),
+                      v)
+    want = jengine.calibrate([jnp.asarray(x)])
+    engine = ServingEngine(model)
+    got = engine.calibrate([torch.from_numpy(x)])
+    assert got.served == got.mode == "dense-masked" and got.ranking == {}
+    assert_same_plan(got, want)
+    out = engine(torch.from_numpy(x))
+    assert out.shape == (1, 10)
+    np.testing.assert_allclose(out.numpy(), np.asarray(jengine(x)),
+                               atol=1e-4)

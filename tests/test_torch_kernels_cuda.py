@@ -34,7 +34,9 @@ and variant, bf16 and s8) to the same four ulps; its s8 sums are exact,
 so its s8 epilogues differ from their plain versions only where an f32
 rounding does (the erf, a contracted multiply-add). The attention
 kernels in f32 sum in full f32 (FFMA) against f32 plain versions: 1e-4 of
-the largest entry (`_f32_tol`).
+the largest entry (`_f32_tol`). Each registered op (`ops/library.py`) is
+held to its CUDA implementation called directly (the same kernels, bit for
+bit) and passes `torch.library.opcheck`.
 """
 
 import pytest
@@ -821,3 +823,133 @@ def test_row_epilogues_refuse_what_they_do_not_take(card):
                 "bias": torch.zeros(192, dtype=torch.bfloat16, device=card)}
     with pytest.raises(ValueError, match="row_cluster"):  # N = 192: CN = 1
         vit_block.block_gemm(a, w, "proj_ln", **kw)
+
+
+# --- the registered ops (`torch.library`, namespace ``laudnet``) -------------
+
+def _op_cases(card):
+    """Each registered op at a small shape: (op, its arguments, its CUDA
+    implementation called directly, the plain version's output and the
+    bound it is held to)."""
+    g = torch.Generator().manual_seed(11)
+    b, l, d, heads = 4, 37, 384, 6
+    p = _layer(g, d, 1536, card)
+    seg = [p] + [_layer(g, d, 1536, card, policy=True) for _ in range(2)]
+    x, mask = _inputs(g, b, l, d, card)
+    km, rm = mask.reshape(b, 1, l), mask.reshape(b, l, 1)
+    qp = vit_block.quantize_block_params(p)
+    flat = vit_block.flatten_layer(p)
+    qflat = vit_block.flatten_layer(qp, int8=True)
+    sflat = [t for q in seg for t in vit_block.flatten_layer(q)]
+    has = ["token_policy" in q for q in seg]
+    qkv = (torch.randn(b, l, 3 * d, generator=g) * 0.5).to(card,
+                                                          torch.bfloat16)
+    gate = _gate(g, b, heads, card)
+    t = _tail_inputs(3, 2, 16, 64, 256, 4, 0.5, card)
+    ops = torch.ops.laudnet
+    _, stats = ops.vit_attention.default(qkv, mask, gate, heads, 0.125, True)
+    dout = (torch.randn(b, l, d, generator=g) * 0.5).to(card, torch.bfloat16)
+    return {
+        "vit_block": (
+            ops.vit_block.default, (x, km, rm, flat, heads, None, 1e-6, True),
+            vit_block._vit_block_cuda,
+            lambda: vit_block.fused_vit_block_reference(
+                x, km, rm, p, num_heads=heads, fast_math=True)),
+        "vit_block_int8": (
+            ops.vit_block_int8.default, (x, km, rm, qflat, heads, gate, 1e-6),
+            vit_block._vit_block_int8_cuda,
+            lambda: vit_block.fused_vit_block_int8_reference(
+                x, km, rm, qp, num_heads=heads, head_gate=gate)),
+        "vit_segment": (
+            ops.vit_segment.default, (x, mask, sflat, has, heads, 1e-6, False),
+            vit_block._vit_segment_cuda,
+            lambda: vit_block.fused_vit_segment_reference(
+                x, mask, seg, num_heads=heads)),
+        "vit_attention": (
+            ops.vit_attention.default, (qkv, mask, gate, heads, 0.125, True),
+            vit_attention._attention_cuda,
+            lambda: vit_attention.reference_vit_attention(
+                qkv, mask, gate, heads, 0.125, return_stats=True)),
+        "vit_attention_bwd": (
+            ops.vit_attention_bwd.default,
+            (qkv, mask, gate, dout, stats, heads, 0.125),
+            vit_attention._attention_bwd_cuda,
+            lambda: vit_attention.reference_vit_attention_bwd(
+                qkv, mask, gate, dout, heads, 0.125, stats=stats)),
+        "masked_bottleneck_tail": (
+            ops.masked_bottleneck_tail.default, (*t.values(), 4, 8),
+            masked_block._tail_cuda,
+            lambda: masked_block.reference_masked_bottleneck_tail(
+                **t, patch=4, capacity=8)),
+    }
+
+
+OPS = ("vit_block", "vit_block_int8", "vit_segment", "vit_attention",
+       "vit_attention_bwd", "masked_bottleneck_tail")
+
+
+def _as_tuple(out):
+    return out if isinstance(out, tuple) else (out,)
+
+
+@pytest.mark.parametrize("name", OPS)
+def test_registered_op_launches_what_its_implementation_does(card, name):
+    """The op through the dispatcher against its CUDA implementation called
+    directly (the ctypes launch of earlier builds): the same kernels by
+    count (`torch.profiler`), the same results bit for bit, and the plain
+    version's within the existing bounds (B5's dhead: 2e-3 of its largest
+    entry, as in the B5 tests above)."""
+    op, args, direct, plain = _op_cases(card)[name]
+    got = _as_tuple(op(*args))
+    same = _as_tuple(direct(*args))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, same))
+    assert _kernel_launches(lambda: op(*args)) == _kernel_launches(
+        lambda: direct(*args))
+    want = _as_tuple(plain())
+    out = got[0]
+    assert out.shape == want[0].shape and out.dtype == want[0].dtype
+    assert (out.float() - want[0].float()).abs().max().item() <= _tol(want[0])
+    if name == "vit_segment":
+        assert torch.equal(got[1], want[1])
+    if name == "vit_attention_bwd":
+        err = (got[1] - want[1]).abs().max().item()
+        assert err <= 2e-3 * want[1].abs().max().item()
+
+
+@pytest.mark.parametrize("name", OPS)
+def test_registered_op_passes_opcheck(card, name):
+    """`torch.library.opcheck`: the schema, the fake (meta) implementation
+    against the real one, and the autograd registration (B4's, with B5's
+    op as its backward, on inputs that need a gradient)."""
+    op, args, _, _ = _op_cases(card)[name]
+    if name == "vit_attention":
+        args = (args[0].float().requires_grad_(), args[1],
+                args[2].clone().requires_grad_(), *args[3:])
+    torch.library.opcheck(op, args)
+
+
+@pytest.mark.parametrize("dtype", [None, torch.bfloat16])
+def test_regnet_forward_runs_without_a_host_sync(card, dtype):
+    """LAUD-RegNetY-400MF at full width, every gate kind (channel, spatial,
+    both) in eval, under ``set_sync_debug_mode("error")``: finite logits."""
+    from laudnet_tpu_torch.models import lad_regnet_y_400mf
+
+    kw = dict(dyn_mode=("channel", "spatial", "both", "both"),
+              mask_spatial_granularity=(4, 4, 2, 1),
+              channel_dyn_granularity=(2, 2, 2, 2), num_classes=10)
+    model = lad_regnet_y_400mf(
+        **kw, compute_dtype=dtype,
+        generator=torch.Generator(card).manual_seed(0)).eval()
+    xc = torch.randn(2, 224, 224, 3,
+                     generator=torch.Generator().manual_seed(1)).to(card)
+    with torch.no_grad():
+        model(xc, 0.1)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = model(xc, 0.1)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    assert out.logits.shape == (2, 10)
+    assert torch.isfinite(out.logits.float()).all()

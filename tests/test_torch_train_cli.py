@@ -95,6 +95,11 @@ def test_flags_of_later_slices_raise(tmp_path, flags):
         # once flags of a later slice: the CNN archs and their QAT now train
         _cnn_run(tmp_path, ["--arch", "uni_resnet50"] + flags)
         return
+    if flags == ["--arch", "lad_regnet_y_400mf"]:
+        # the RegNet archs train too: the JAX CLI's RegNet smoke run
+        # (`tests/test_train_cli.py::test_train_main_regnet_smoke`)
+        _regnet_run(tmp_path, flags)
+        return
     with pytest.raises(NotImplementedError, match="slice of the port"):
         tmain.main(BASE + ["--train_url", str(tmp_path)] + flags)
     assert not (tmp_path / "train.log").exists()    # refused before writing
@@ -126,6 +131,27 @@ def _cnn_run(tmp_path, flags, blocks=16, epochs="1", keep=False):
     assert rows[0] == tmain.CSV_HEADER and len(rows) == 1 + int(epochs)
     assert all(np.isfinite(float(v)) for v in rows[-1])
     return dens
+
+
+def _regnet_run(tmp_path, flags):
+    """Channel gates of granularity 2 in every stage, the backbone at a
+    tenth of the rate; LAUD-RegNetY-400MF has 16 blocks."""
+    best = tmain.main(CNN_BASE + flags + [
+        "--dyn_mode", "channel-channel-channel-channel",
+        "--channel_dyn_granularity", "2-2-2-2",
+        "--channel_masker_layers", "2-2-2-2", "--lr_mult", "0.1",
+        "--epochs", "1", "--train_url", str(tmp_path)])
+    assert np.isfinite(best)
+    _drop_checkpoints(tmp_path)
+    dens = np.loadtxt(tmp_path / "all_density_latest.txt")
+    assert dens.shape == (4, 16)
+    assert (dens[:3] == 1.0).all()      # channel mode: no spatial gates
+    assert ((0 <= dens[3]) & (dens[3] <= 1)).all()
+    log = open(tmp_path / "train.log").read()
+    assert "full_flops (dense multiply-adds)" in log
+    with pytest.raises(SystemExit, match="LAUD-ResNet-only"):
+        tmain.main(CNN_BASE + flags + ["--conv_impl", "int8_qat",
+                                       "--train_url", str(tmp_path / "q")])
 
 
 def test_train_main_cnn_smoke_resume_and_evaluate(tmp_path):
