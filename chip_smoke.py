@@ -97,7 +97,23 @@ each raising on failure:
     called directly;
 13. the GPU roofline simulator's CLI (`python -m
     laudnet_tpu_torch.sim.cli`), ResNet-50 on the V100 preset and a DeiT-S
-    plan on the H100 model.
+    plan on the H100 model;
+14. real input and reference checkpoints: what the host offers the image
+    pipelines (PIL, g++, libjpeg's header and library, cores); an image
+    folder of 10 classes (400 train, 130 val JPEGs of 160-500 px, some
+    grayscale, one PNG) in a temporary directory; the PIL loader and,
+    where it builds, the native C++ loader alone (img/s at bs128 224^2, the
+    native one held to PIL within the JAX test's bounds); DeiT-S trained
+    from the folder through ``train.main.main(... --data_url DIR)`` for one
+    epoch (3 steps, validation with a padded last batch: B4 and B5 counted,
+    the logged pipeline the one that builds), the step fed by the loader
+    timed beside the same step on a batch already on the card (kernel
+    time, idle share, peak memory); reference ``.pth.tar`` files of a dense
+    ResNet-50 and the flagship written by the port's `save_pth_tar`, read
+    back by ``--teacher_path`` and ``--finetune_from`` (f32 logits bit for
+    bit the source models'), a fine-tuning run of the flagship on the
+    folder, ``--evaluate_from`` on the flagship file (the source model's
+    top-1) and on a timm-named DeiT-S file (the policy heads merged).
 
 Prints a JSON line of the kernels, then as its last line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX. Nothing runs at
@@ -109,7 +125,9 @@ a changed kernel), ``python3 chip_smoke.py train`` runs phases 1-3 and 6,
 ``python3 chip_smoke.py probes`` runs phases 1-2 and both probes in full
 (every mode set, the stage breakdown, the launch costs of
 `tools/probe_host.py`), ``python3 chip_smoke.py engine`` runs phases 1-2
-and 10, ``python3 chip_smoke.py regnet`` phases 1-2 and 11-13, and ``python3 chip_smoke.py profile`` prints, instead of
+and 10, ``python3 chip_smoke.py regnet`` phases 1-2 and 11-13,
+``python3 chip_smoke.py data`` phases 1-2 and 14, and ``python3
+chip_smoke.py profile`` prints, instead of
 the phases, where a forward's device time goes (`torch.profiler`, by
 kernel) for the dense and snapped DeiT-S, W8A8 DeiT-S and T2T-ViT-19
 engines. None of
@@ -127,6 +145,7 @@ import sys
 import tempfile
 import time
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -2850,6 +2869,378 @@ def phase_simulator():
             raise AssertionError(f"sim.cli printed no prediction:\n{err}")
 
 
+# --- real input and reference checkpoints (phase 14) ------------------------
+
+DATA_CLASSES, DATA_TRAIN, DATA_VAL = 10, 40, 13   # 400 train, 130 val images
+DATA_SIDES = (160, 500)
+DATA_STEPS = DATA_CLASSES * DATA_TRAIN // B        # 3 steps of 128
+DATA_VAL_BATCHES = -(-DATA_CLASSES * DATA_VAL // B)  # 128 + 2 padded rows
+DATA_TRAIN_ARGV = ["--arch", "laud_deit_small", "--vit_attn", "fused",
+                   "--amp", "--batch_size", str(B), "--input_size", str(IMG),
+                   "--num_classes", str(DATA_CLASSES), "--epochs", "1",
+                   "--print_freq", "1"]
+# 400 // 192 = 2 steps of the flagship, its val set one batch of 130 + 62
+DATA_CNN_ARGV = ["--arch", "uni_resnet50", "--batch_size", "192",
+                 "--input_size", str(IMG), "--num_classes",
+                 str(DATA_CLASSES), "--epochs", "1", "--print_freq", "1"]
+# the native loader against the PIL path, eval transform unnormalised, per
+# pixel and in the mean (tests/test_native_loader.py:56-57)
+NATIVE_PIXEL, NATIVE_MEAN = 6.0 / 255.0, 1.0 / 255.0
+
+
+def image_host_facts():
+    """What the image pipelines need on this host: PIL, g++, libjpeg's
+    header and library; and the cores the loaders' threads share."""
+    facts = {}
+    try:
+        import PIL
+        facts["PIL"] = PIL.__version__
+    except ImportError:
+        facts["PIL"] = None
+    try:
+        facts["g++"] = run(["g++", "--version"]).splitlines()[0]
+        header = subprocess.run(["g++", "-x", "c++", "-fsyntax-only", "-"],
+                                input="#include <cstdio>\n#include <jpeglib.h>\n",
+                                capture_output=True, text=True)
+        facts["jpeglib.h"] = header.returncode == 0
+    except (OSError, subprocess.CalledProcessError):
+        facts["g++"], facts["jpeglib.h"] = None, False
+    try:
+        libs = subprocess.run(["ldconfig", "-p"], capture_output=True,
+                              text=True).stdout
+        facts["libjpeg"] = [line.strip().split(" ")[0] for line in
+                            libs.splitlines() if "jpeg" in line.lower()]
+    except OSError:
+        facts["libjpeg"] = None
+    facts["nproc"] = os.cpu_count()
+    print(f"host probe: {facts}")
+    return facts
+
+
+def write_image_folder(root):
+    """root/{train,val}/<class>/<image>: DATA_CLASSES classes of DATA_TRAIN
+    and DATA_VAL JPEGs of 160-500 px a side (smooth noise fields), every
+    17th grayscale, one PNG; written by a thread pool."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from PIL import Image
+
+    rng = np.random.default_rng(0)
+    jobs = []
+    for split, n in (("train", DATA_TRAIN), ("val", DATA_VAL)):
+        for c in range(DATA_CLASSES):
+            os.makedirs(f"{root}/{split}/n{c:02d}")
+            for i in range(n):
+                w, h = (int(v) for v in rng.integers(*DATA_SIDES, 2))
+                k = len(jobs)
+                ext = "png" if k == 5 else "jpg"
+                jobs.append((f"{root}/{split}/n{c:02d}/{i}.{ext}", w, h,
+                             "L" if k % 17 == 3 else "RGB",
+                             int(rng.integers(2 ** 31))))
+
+    def write(job):
+        path, w, h, mode, seed = job
+        g = np.random.default_rng(seed)
+        shape = (9, 12, 3) if mode == "RGB" else (9, 12)
+        Image.fromarray(g.integers(0, 255, shape, np.uint8), mode).resize(
+            (w, h), Image.BICUBIC).save(path, quality=90)
+
+    with ThreadPoolExecutor(os.cpu_count()) as pool:
+        list(pool.map(write, jobs))
+    return len(jobs)
+
+
+def loader_rate(loader, epochs=2):
+    """img/s of ``loader`` alone over its last epoch (the first warms the
+    page cache and the threads); the batches are dropped."""
+    for e in range(epochs):
+        t = time.perf_counter()
+        n = sum(len(y) for _, y in loader.epoch(e))
+        secs = time.perf_counter() - t
+    return n / secs, secs
+
+
+def pil_breakdown(paths):
+    """Single-thread ms an image of the PIL train transform's parts, in
+    its own order (`data/transforms.py::train_transform`)."""
+    import random
+
+    from PIL import Image
+
+    from laudnet_tpu_torch.data import transforms as tf
+
+    parts = dict.fromkeys(("open + decode", "crop + resize + flip",
+                           "to f32 + normalise"), 0.0)
+    for seed, path in enumerate(paths):
+        t0 = time.perf_counter()
+        with Image.open(path) as img:
+            img = img.convert("RGB")
+        t1 = time.perf_counter()
+        rng = random.Random(seed)
+        img = tf.random_resized_crop(img, IMG, rng)
+        if rng.random() < 0.5:
+            img = img.transpose(Image.FLIP_LEFT_RIGHT)
+        t2 = time.perf_counter()
+        tf._to_array(img, normalize=True)
+        t3 = time.perf_counter()
+        for k, dt in zip(parts, (t1 - t0, t2 - t1, t3 - t2)):
+            parts[k] += dt * 1e3 / len(paths)
+    return parts
+
+
+def timm_deit_state(model):
+    """``model``'s weights under timm's DeiT names: the reference ViT
+    checkpoints' layout, without policy heads."""
+    from laudnet_tpu_torch.convert import to_flax_tree
+
+    tree = to_flax_tree(model)
+    state = {"patch_embed.proj.weight":
+             tree["patch_embed"]["kernel"].transpose(3, 2, 0, 1),
+             "patch_embed.proj.bias": tree["patch_embed"]["bias"],
+             "cls_token": tree["cls_token"], "pos_embed": tree["pos_embed"],
+             "norm.weight": tree["norm"]["scale"],
+             "norm.bias": tree["norm"]["bias"],
+             "head.weight": tree["head"]["kernel"].T,
+             "head.bias": tree["head"]["bias"]}
+    timm = {"qkv": "attn.qkv", "proj": "attn.proj", "fc1": "mlp.fc1",
+            "fc2": "mlp.fc2", "norm1": "norm1", "norm2": "norm2"}
+    for i in range(len(model.blocks)):
+        for mod, name in timm.items():
+            for leaf, v in tree[f"block_{i}"][mod].items():
+                state[f"blocks.{i}.{name}." + ("bias" if leaf == "bias"
+                                               else "weight")] = (
+                    v.T if leaf == "kernel" else v)
+    return {k: torch.from_numpy(v.copy()) for k, v in state.items()}
+
+
+def fed_and_synthetic_steps(tr, card):
+    """The DeiT-S step fed by the loader (host batch, pinned copy, step;
+    one epoch of DATA_STEPS, timed after one warm epoch) beside the same
+    step on one batch already on the card, each with its kernels' time and
+    idle share, and the fed epoch's peak memory."""
+    def epoch(e):
+        out = []
+        for images, labels in tr.train_loader.epoch(e):
+            out.append(tr.train_step(tr.state, *tr.to_device(images, labels)))
+        torch.cuda.synchronize()
+        return out
+
+    epoch(0)
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    metrics = epoch(1)
+    fed_ms = (time.perf_counter() - t) * 1e3 / len(metrics)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(m["loss"]) for m in metrics]
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"the fed DeiT-S steps: loss {losses}")
+    fed_busy, fed_launches = device_busy_ms(lambda: epoch(2), 1)
+    fed_busy /= DATA_STEPS
+    images, labels = next(iter(tr.train_loader.epoch(3)))
+    x, y = tr.to_device(images, labels)
+    step = lambda: tr.train_step(tr.state, x, y)
+    syn_ms = time_ms(step, reps=6, warmup=2)
+    syn_busy, _ = device_busy_ms(step, 3)
+    print(f"DeiT-S train step fed by the loader: {fed_ms:.4f} ms "
+          f"({B / (fed_ms / 1e3):.1f} img/s), {fed_busy:.4f} ms of kernels, "
+          f"idle share {max(0.0, 1 - fed_busy / fed_ms):.4f}, peak memory "
+          f"{peak / 2 ** 30:.4f} GiB, losses {losses}; on a batch already on "
+          f"the card: {syn_ms:.4f} ms, {syn_busy:.4f} ms of kernels, idle "
+          f"share {max(0.0, 1 - syn_busy / syn_ms):.4f}; fed / synthetic "
+          f"{fed_ms / syn_ms:.4f} [{card}]")
+
+
+def phase_data(dev, card):
+    """Real input and reference checkpoints: the host probe, an image
+    folder, the loaders alone, DeiT-S trained from the folder through the
+    CLI (B4 and B5 counted), and reference `.pth.tar` files written by the
+    port's converter and read back by ``--teacher_path``,
+    ``--finetune_from`` and ``--evaluate_from``."""
+    from laudnet_tpu_torch.convert import (load_flax_variables, save_pth_tar,
+                                           to_flax_variables)
+    from laudnet_tpu_torch.data import (DataLoader, ImageFolderDataset,
+                                        eval_transform, native_loader,
+                                        train_transform)
+    from laudnet_tpu_torch.train import main as train_main
+
+    facts = image_host_facts()
+    native = native_loader.native_available()
+    print(f"native C++ loader: {'builds' if native else 'does not build: '}"
+          f"{'' if native else (native_loader.build_error() or '').strip()[:300]}")
+    if native and not facts["jpeglib.h"]:
+        raise AssertionError("the native loader built without jpeglib.h")
+    quiet = lambda *a, **k: None
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = f"{tmp}/images"
+        if facts["PIL"] is None:
+            print("image part of phase 14 not run: this host has no PIL, so "
+                  "no image can be written here, and "
+                  + ("libjpeg's header is there" if facts["jpeglib.h"]
+                     else "no libjpeg header either, so no pipeline of the "
+                          "port can decode one"))
+        else:
+            t = time.perf_counter()
+            n = write_image_folder(root)
+            print(f"image folder: {n} images of {DATA_SIDES[0]}-"
+                  f"{DATA_SIDES[1]} px, {DATA_CLASSES} classes, in "
+                  f"{time.perf_counter() - t:.1f} s")
+
+            # --- the loaders alone ---------------------------------------
+            train_dir = f"{root}/train"
+            pil = DataLoader(ImageFolderDataset(train_dir,
+                                                train_transform(IMG)), B)
+            rates = {"PIL": loader_rate(pil)}
+            one = DataLoader(ImageFolderDataset(train_dir,
+                                                train_transform(IMG)), B,
+                             num_workers=1)
+            rates["PIL, 1 thread"] = loader_rate(one, epochs=1)
+            parts = pil_breakdown([p for p, _ in one.dataset.samples[:64]])
+            print("PIL train transform, one thread, ms an image: " + ", ".join(
+                f"{k} {v:.3f}" for k, v in parts.items())
+                + f" (sum {sum(parts.values()):.3f})")
+            if native:
+                fast = native_loader.NativeDataLoader(
+                    ImageFolderDataset(train_dir, None), B, size=IMG)
+                rates["native"] = loader_rate(fast)
+                paths = [p for p, _ in fast.dataset.samples[::50]]
+                ours = native_loader.NativeBatchTransform(
+                    IMG, train=False, normalize=False).load(
+                        paths, [0] * len(paths))
+                from PIL import Image
+                ref = []
+                for p in paths:
+                    with Image.open(p) as img:
+                        ref.append(eval_transform(IMG, normalize=False)(img))
+                diff = abs(ours - np.stack(ref))
+                print(f"native vs PIL eval transform on {len(paths)} "
+                      f"images: max {diff.max():.6f}, mean "
+                      f"{diff.mean():.6f}")
+                if diff.max() > NATIVE_PIXEL or diff.mean() > NATIVE_MEAN:
+                    raise AssertionError("native loader disagrees with PIL")
+            for name, (rate, secs) in rates.items():
+                print(f"loader alone, {name}: {rate:.1f} img/s (bs{B} "
+                      f"{IMG}^2 train transform, {secs:.3f} s an epoch of "
+                      f"{DATA_STEPS * B} images, {facts['nproc']} cores)")
+            if native:
+                print(f"native / PIL: {rates['native'][0] / rates['PIL'][0]:.4f}")
+
+            # --- DeiT-S trained from the folder through the CLI ----------
+            argv = DATA_TRAIN_ARGV + ["--data_url", root]
+            with tempfile.TemporaryDirectory() as out:
+                best, delta = counted(lambda: train_main.main(
+                    argv + ["--train_url", out]))
+                log = open(f"{out}/train.log").read()
+                with open(f"{out}/log.txt") as f:
+                    header, row = (line.strip().split(",")
+                                   for line in f.readlines())
+            n_b4 = delta["fused_vit_attention"]
+            n_b5 = delta["fused_vit_attention_bwd"]
+            want = ("input pipeline: native C++ loader" if native
+                    else "input pipeline: PIL")
+            pipeline = next(line for line in log.splitlines()
+                            if "input pipeline" in line)
+            print(f"train.main --data_url: best top1 {best:.4f}; B4 "
+                  f"{n_b4}, B5 {n_b5} launches; '{pipeline.strip()}'; "
+                  f"log.txt {dict(zip(header, row))}")
+            if (n_b4 != 24 * DATA_STEPS + 12 * DATA_VAL_BATCHES
+                    or n_b5 != 12 * DATA_STEPS):
+                raise AssertionError(
+                    f"train.main --data_url: expected "
+                    f"{24 * DATA_STEPS + 12 * DATA_VAL_BATCHES} B4 and "
+                    f"{12 * DATA_STEPS} B5 launches")
+            if want not in pipeline or f"[{DATA_STEPS - 1}/{DATA_STEPS}]" \
+                    not in log or "nan" in log:
+                raise AssertionError("train.main --data_url: wrong pipeline, "
+                                     "step count or a metric not finite")
+            if not all(math.isfinite(float(v)) for v in row):
+                raise AssertionError("train.main --data_url: a metric is "
+                                     "not finite")
+            # timing runs: their launches are not the main path's
+            tr = train_main.build_training(train_main.parse_args(argv), quiet)
+            fed_and_synthetic_steps(tr, card)
+            del tr
+
+        # --- reference checkpoints on the card ---------------------------
+        cnn_args = train_main.parse_args(DATA_CNN_ARGV + ["--seed", "21"])
+        src = train_main.build_training(cnn_args, quiet)
+        g = torch.Generator(dev).manual_seed(22)
+        for model in (src.model, src.teacher):
+            for name, buf in model.named_buffers():
+                if name.endswith("running_mean"):
+                    buf.copy_(torch.randn(buf.shape, generator=g,
+                                          device=dev) * 0.1)
+        flagship_path = f"{tmp}/laud_resnet50.pth.tar"
+        dense_path = f"{tmp}/resnet50.pth.tar"
+        save_pth_tar(to_flax_variables(src.model), flagship_path, epoch=0)
+        save_pth_tar(to_flax_variables(src.teacher), dense_path, epoch=0)
+        ckpt = ["--teacher_path", dense_path, "--finetune_from", flagship_path]
+        loaded = train_main.build_training(
+            train_main.parse_args(DATA_CNN_ARGV + ckpt), quiet)
+        x = torch.randn(16, IMG, IMG, 3, device=dev,
+                        generator=torch.Generator(dev).manual_seed(23))
+        with torch.no_grad():
+            same_teacher = torch.equal(loaded.teacher(x, training=False),
+                                       src.teacher(x, training=False))
+            same_student = torch.equal(
+                loaded.model(x, 0.1, training=False).logits,
+                src.model(x, 0.1, training=False).logits)
+        print(f"reference checkpoints read back on the card: the teacher's "
+              f"f32 logits bit for bit {same_teacher}, the fine-tuned "
+              f"flagship's {same_student}")
+        if not (same_teacher and same_student):
+            raise AssertionError("a checkpoint read back on the card gives "
+                                 "other logits than its source model")
+        del loaded
+        if facts["PIL"] is not None:
+            data = ["--data_url", root, "--amp"]
+            with tempfile.TemporaryDirectory() as out:
+                best, _ = counted(lambda: train_main.main(
+                    DATA_CNN_ARGV + data + ckpt + ["--train_url", out]))
+                log = open(f"{out}/train.log").read()
+            print(f"train.main uni_resnet50 --teacher_path --finetune_from "
+                  f"--data_url: best top1 {best:.4f}")
+            if ("loaded teacher from" not in log or "[1/2]" not in log
+                    or "nan" in log or "disabling KD" in log):
+                raise AssertionError("the flagship's fine-tuning run")
+            with tempfile.TemporaryDirectory() as out:
+                top1 = train_main.main(DATA_CNN_ARGV + data + [
+                    "--evaluate_from", flagship_path, "--train_url", out])
+            ref = train_main.build_training(
+                train_main.parse_args(DATA_CNN_ARGV + data), quiet)
+            load_flax_variables(ref.model, to_flax_variables(src.model))
+            want = train_main._validate(ref)[0]
+            print(f"--evaluate_from the flagship file: top1 {top1!r}; its "
+                  f"source model on the same val set: {want!r}")
+            if top1 != want:
+                raise AssertionError("--evaluate_from disagrees with the "
+                                     "file's source model")
+            del ref
+
+            # a timm DeiT-S file: the policy heads stay as initialised
+            vit_args = train_main.parse_args(DATA_TRAIN_ARGV + [
+                "--data_url", root, "--seed", "24"])
+            vit = train_main.build_training(vit_args, quiet)
+            with torch.no_grad():
+                for name, p in vit.model.named_parameters():
+                    if "_policy" not in name:
+                        p.mul_(1.01)
+            deit_path = f"{tmp}/deit_small.pth"
+            torch.save({"model": timm_deit_state(vit.model)}, deit_path)
+            want = train_main._validate(vit)[0]
+            del vit
+            with tempfile.TemporaryDirectory() as out:
+                top1, delta = counted(lambda: train_main.main(
+                    DATA_TRAIN_ARGV + ["--data_url", root, "--seed", "24",
+                                       "--evaluate_from", deit_path,
+                                       "--train_url", out]))
+            print(f"--evaluate_from a timm DeiT-S file: top1 {top1!r} "
+                  f"(its source with the same policy heads: {want!r}); B4 "
+                  f"{delta['fused_vit_attention']} launches")
+            if top1 != want or not delta["fused_vit_attention"]:
+                raise AssertionError("--evaluate_from the DeiT-S file")
+
+
 REPLACES = {
     "fused_vit_block": "laudnet_tpu/ops/pallas/vit_block.py:303",
     "fused_vit_segment": "laudnet_tpu/ops/pallas/vit_block.py:472",
@@ -2888,6 +3279,11 @@ def main():
         phase_simulator()
         print(f"RegNet, AOT and simulator phases passed in "
               f"{time.perf_counter() - t0:.1f} s [{card}]")
+        return
+    if sys.argv[1:] == ["data"]:
+        phase_data(dev, card)
+        print(f"data phase passed in {time.perf_counter() - t0:.1f} s "
+              f"[{card}]")
         return
     if sys.argv[1:] == ["engine"]:
         phase_engine(dev, card)
@@ -2930,6 +3326,8 @@ def main():
     timed("AOT artifacts")
     phase_simulator()
     timed("simulator")
+    phase_data(dev, card)
+    timed("real input and reference checkpoints")
     launches = MAIN_PATH_LAUNCHES
     kernels = []
     for name, rows in results.items():

@@ -36,7 +36,10 @@ Flax names the blocks ``block_{i}``; the port holds them in
 `to_flax_tree` is the inverse: the port's parameters (or their gradients)
 back in the flax tree's layout as numpy, so a test can hold a train step's
 updated parameters and gradients against JAX's leaf by leaf;
-`to_flax_batch_stats` does the same for the BatchNorm statistics.
+`to_flax_batch_stats` does the same for the BatchNorm statistics, and
+`to_flax_variables` gives both as the ``variables`` dict that
+`load_flax_variables` and the reference-checkpoint converters
+(`convert/torch_export.py`) take.
 """
 
 from __future__ import annotations
@@ -175,3 +178,14 @@ def to_flax_batch_stats(model: nn.Module) -> dict:
             _set_leaf(tree, module, back[leaf],
                       buf.detach().float().cpu().numpy())
     return tree
+
+
+def to_flax_variables(model: nn.Module) -> dict:
+    """``{"params": to_flax_tree(model)}``, with ``"batch_stats"`` when the
+    model has BatchNorm statistics: what `load_flax_variables` takes back
+    and `convert.torch_export.save_pth_tar` writes."""
+    variables = {"params": to_flax_tree(model)}
+    stats = to_flax_batch_stats(model)
+    if stats:
+        variables["batch_stats"] = stats
+    return variables

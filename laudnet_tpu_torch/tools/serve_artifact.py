@@ -24,20 +24,30 @@ import torch
 
 def kernel_counts(fn, tries: int = 6) -> dict:
     """The CUDA kernels one call of ``fn`` launches, by name (copies and
-    fills aside), from `torch.profiler`. The profiler can drop events (a
-    whole buffer of a trace), so the trace is taken again until two in a
-    row agree; a call's kernels are deterministic."""
-    from torch.profiler import ProfilerActivity, profile
+    fills aside), from `torch.profiler`. The profiler can drop events: a
+    whole buffer of a trace, or the first launches after it starts (a
+    trace of the H100 machine lost a forward's first ten kernels, twice
+    in a row). So each trace records a second call, after a warm-up call
+    under the running profiler, and is taken again until two in a row
+    agree; a call's kernels are deterministic."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     counts = []
-    for _ in range(tries):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
+
+    def read(prof):
         counts.append({e.key: e.count for e in prof.key_averages()
                        if e.device_type.name == "CUDA"
                        and not e.key.startswith(("Memcpy", "Memset"))})
+
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1),
+                     on_trace_ready=read) as prof:
+            for _ in range(2):
+                fn()
+                torch.cuda.synchronize()
+                prof.step()
         if len(counts) > 1 and counts[-1] == counts[-2]:
             break
     return counts[-1]

@@ -7,7 +7,16 @@ files, auto-resume, CSV metric logs and per-block density dumps. The flags
 and defaults are the JAX CLI's, plus ``--device`` (the card unless ``cpu``
 is asked for).
 
-Run without ``--data_url`` to train on synthetic data::
+With ``--data_url DIR`` it trains and validates on the image folders
+``DIR/train`` and ``DIR/val`` (``<class>/<image>``, torchvision's
+ImageFolder layout) through the native C++ loader (`data/native_loader.py`)
+or, with ``--no_native_loader``, an extra augmentation flag, or where that
+library does not build, through the PIL pipeline (`data/loader.py`); the
+log says which and why. ``--finetune_from`` and ``--teacher_path`` take
+reference ``.pth``/``.pth.tar`` checkpoints through the family's converter
+(`convert/`), loaded loosely (strict=False: the maskers stay as
+initialised), and ``--evaluate_from`` evaluates one. Without
+``--data_url`` it trains on synthetic data::
 
     python -m laudnet_tpu_torch.train.main --arch laud_deit_small \\
         --vit_attn fused --amp --epochs 1 --steps_per_epoch 8 \\
@@ -27,8 +36,6 @@ or a LAUD-RegNet, distilled from the static RegNet of the same recipe
         --channel_dyn_granularity 2-2-2-2 --lr_mult 0.1 --amp \
         --epochs 1 --steps_per_epoch 8 --batch_size 128
 
-The ViT family, the LAUD-ResNets and the LAUD-RegNets train on synthetic
-batches. ``--data_url``, ``--finetune_from``, ``--teacher_path``,
 ``--tp/--fsdp/--pp`` and ``--dist_*`` are parsed and raise
 `NotImplementedError` naming the slice that brings them.
 """
@@ -44,6 +51,8 @@ from typing import Any, Callable
 
 import numpy as np
 import torch
+
+from laudnet_tpu_torch.data.loader import synthetic_batches
 
 RESNET_ARCHS = ("uni_resnet50", "uni_resnet101")
 REGNET_ARCHS = tuple(
@@ -119,10 +128,15 @@ def parse_args(argv=None):
     p.add_argument("--alpha_kd", type=float, default=0.5)
     p.add_argument("--lr_mult", type=float, default=1.0)
     # checkpoints
-    p.add_argument("--finetune_from", default=None)
+    p.add_argument("--finetune_from", default=None,
+                   help="torch .pth[.tar] with static weights (strict=False)")
     p.add_argument("--teacher_path", default=None)
     p.add_argument("--evaluate_from", default=None,
-                   help="a checkpoint this CLI wrote (ckpt/step_<n>.pt)")
+                   help="evaluate a reference .pth[.tar] (a state_dict, or "
+                        "one under 'state_dict' or 'model') through the "
+                        "arch family's converter; a ViT keeps its "
+                        "initialised policy heads. Not the ckpt/step_<n>.pt "
+                        "this CLI writes")
     # overrides / smoke knobs
     p.add_argument("--epochs", type=int, default=None)
     p.add_argument("--batch_size", type=int, default=None)
@@ -131,7 +145,9 @@ def parse_args(argv=None):
     p.add_argument("--input_size", type=int, default=224)
     p.add_argument("--num_classes", type=int, default=1000)
     p.add_argument("--print_freq", type=int, default=10)
-    p.add_argument("--no_native_loader", action="store_true")
+    p.add_argument("--no_native_loader", action="store_true",
+                   help="the PIL input pipeline even where the native C++ "
+                        "loader builds")
     p.add_argument("--colorjitter", action="store_true")
     p.add_argument("--autoaugment", action="store_true")
     p.add_argument("--change_light", action="store_true")
@@ -171,32 +187,12 @@ def _refuse_later_slices(args) -> None:
     if family != "vit" and args.vit_linear != "dense":
         raise SystemExit("--vit_linear applies to ViT archs; for LAUD-ResNet "
                          "QAT use --conv_impl int8_qat")
-    if args.data_url is not None:
-        later("--data_url (real ImageNet input)", "the data slice")
-    if args.colorjitter or args.autoaugment or args.change_light:
-        later("the train-time augmentations", "the data slice")
-    for flag in ("finetune_from", "teacher_path"):
-        if getattr(args, flag) is not None:
-            later(f"--{flag} (external checkpoints)", "the data slice")
     if args.tp != 1 or args.fsdp or args.pp != 1:
         later("--tp/--fsdp/--pp", "the parallel slice")
     if any(v is not None for v in (args.dist_coordinator,
                                    args.dist_num_processes,
                                    args.dist_process_id)):
         later("--dist_* (multi-process training)", "the parallel slice")
-
-
-def synthetic_batches(batch_size: int, size: int = 224,
-                      num_classes: int = 1000, steps: int = 10,
-                      seed: int = 0):
-    """Dataset-free batches: NHWC f32 images and int32 labels (numpy)."""
-    rng = np.random.default_rng(seed)
-    for _ in range(steps):
-        yield (
-            rng.standard_normal((batch_size, size, size, 3)).astype(
-                np.float32),
-            rng.integers(0, num_classes, (batch_size,)).astype(np.int32),
-        )
 
 
 def _stage_list(spec: str, cast=str):
@@ -214,6 +210,134 @@ def _density_rows(s):
         "token_density", "head_density", "attn_density", "mlp_density")])
 
 
+def _pad_val_batch(images, labels, full_bs: int):
+    """Wrap-pad a final partial val batch (the drop_last=False tail) up to
+    the full batch size and return a 0/1 validity mask: the eval step
+    weights top1/top5 by it, so they stay exact over the real rows."""
+    n = len(labels)
+    weights = np.ones((full_bs,), np.float32)
+    if n == full_bs:
+        return images, labels, weights
+    reps = -(-full_bs // n)  # ceil
+    images = np.concatenate([np.asarray(images)] * reps)[:full_bs]
+    labels = np.concatenate([np.asarray(labels)] * reps)[:full_bs]
+    weights[n:] = 0.0
+    return images, labels, weights
+
+
+def build_loaders(args, batch_size: int, log=print):
+    """The train and val loaders of ``--data_url``: the native C++ loader
+    unless ``--no_native_loader``, an augmentation only the PIL transform
+    has, or a library that does not build says otherwise. The log names
+    the pipeline and, for PIL, why."""
+    from laudnet_tpu_torch.data import (DataLoader, ImageFolderDataset,
+                                        eval_transform, train_transform)
+    from laudnet_tpu_torch.data import native_loader
+
+    train_ds = ImageFolderDataset(
+        os.path.join(args.data_url, "train"),
+        train_transform(args.input_size,
+                        color_jitter=0.4 if args.colorjitter else 0.0,
+                        auto_augment="original" if args.autoaugment else None,
+                        change_light=args.change_light))
+    val_ds = ImageFolderDataset(os.path.join(args.data_url, "val"),
+                                eval_transform(args.input_size))
+    # flags first: native_available() may compile the C++ loader, which
+    # must not run when the user opted out or needs the PIL-only augs
+    if args.no_native_loader:
+        why = "--no_native_loader"
+    elif args.colorjitter or args.autoaugment or args.change_light:
+        why = "--colorjitter/--autoaugment/--change_light run in PIL"
+    elif not native_loader.native_available():
+        error = (native_loader.build_error() or "").strip().splitlines()
+        why = ("the native loader does not build: "
+               + (error[0] if error else "unknown error"))
+    else:
+        log("input pipeline: native C++ loader (data/csrc/loader.cpp)")
+        return (native_loader.NativeDataLoader(
+                    train_ds, batch_size, train=True, size=args.input_size,
+                    seed=args.seed),
+                native_loader.NativeDataLoader(
+                    val_ds, batch_size, train=False, size=args.input_size,
+                    shuffle=False, drop_last=False))
+    log(f"input pipeline: PIL (data/transforms.py); {why}")
+    return (DataLoader(train_ds, batch_size, seed=args.seed),
+            DataLoader(val_ds, batch_size, shuffle=False, drop_last=False))
+
+
+def convert_checkpoint(family: str, path: str) -> dict:
+    """A reference ``.pth``/``.pth.tar`` as the flax-named tree of numpy
+    arrays, through the arch family's converter. Raises on a file whose
+    names the converter does not know (the port's own ``step_<n>.pt``
+    among them)."""
+    from laudnet_tpu_torch import convert
+
+    fn = {"regnet": convert.convert_regnet_state_dict,
+          "vit": convert.convert_vit_state_dict,
+          "resnet": convert.convert_resnet_state_dict}[family]
+    return fn(convert.load_pth_tar(path))
+
+
+def _merge_loose(variables, loaded) -> int:
+    """strict=False load (reference `main.py:281`): copies into
+    ``variables`` every loaded leaf whose path exists there with the same
+    shape; the rest (maskers, policy heads, another head width) stays as
+    it was. Returns the number of leaves copied."""
+    copied = 0
+
+    def merge(dst, src):
+        nonlocal copied
+        for k, v in src.items():
+            if k in dst:
+                if isinstance(v, dict):
+                    merge(dst[k], v)
+                elif dst[k].shape == np.shape(v):
+                    dst[k] = np.asarray(v, dst[k].dtype)
+                    copied += 1
+
+    for coll in loaded:
+        if coll in variables:
+            merge(variables[coll], loaded[coll])
+    return copied
+
+
+def load_loose(model, family: str, path: str) -> str:
+    """``path``'s weights into ``model`` wherever a leaf matches
+    (`_merge_loose`); returns how many leaves of the model it set."""
+    from laudnet_tpu_torch.convert import (load_flax_variables,
+                                           to_flax_variables)
+
+    variables = to_flax_variables(model)
+    copied = _merge_loose(variables, convert_checkpoint(family, path))
+    load_flax_variables(model, variables)
+    total = sum(1 for tree in variables.values() for _ in _leaves(tree))
+    return f"{copied} of {total} leaves"
+
+
+def _leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v
+
+
+def load_for_evaluation(model, family: str, path: str) -> None:
+    """``--evaluate_from``: the checkpoint's weights, all of them. A
+    CNN's are loaded strictly (a parameter the file lacks raises); a ViT
+    takes a plain DeiT checkpoint's into its initialised policy heads."""
+    from laudnet_tpu_torch.convert import (load_flax_variables,
+                                           merge_variables, to_flax_tree)
+
+    loaded = convert_checkpoint(family, path)
+    if family == "vit":
+        # plain DeiT checkpoints carry no policy heads; keep the init ones
+        params = merge_variables(to_flax_tree(model), loaded["params"])
+        load_flax_variables(model, {"params": params})
+    else:
+        load_flax_variables(model, loaded)
+
+
 @dataclasses.dataclass
 class Training:
     """What `build_training` sets up and `main` drives."""
@@ -228,6 +352,9 @@ class Training:
     epochs: int
     batch_size: int
     steps_per_epoch: int
+    # the image-folder loaders of --data_url; None on synthetic data
+    train_loader: Any = None
+    val_loader: Any = None
 
     def to_device(self, images: np.ndarray, labels: np.ndarray):
         """A host batch onto the device; through pinned memory on a card,
@@ -311,8 +438,13 @@ def build_training(args, log=print) -> Training:
             teacher = models.ResNet(layers=model.layers, **teacher_kw)
     teacher.requires_grad_(False)
 
-    steps_per_epoch = args.steps_per_epoch or 10
-    log("no --data_url: training on synthetic data (smoke mode)")
+    train_loader = val_loader = None
+    if args.data_url:
+        train_loader, val_loader = build_loaders(args, batch_size, log)
+        steps_per_epoch = len(train_loader)
+    else:
+        steps_per_epoch = args.steps_per_epoch or 10
+        log("no --data_url: training on synthetic data (smoke mode)")
     if family == "vit":
         full_flops = vit_dense_flops(model, input_size=args.input_size)
     elif family == "regnet":
@@ -328,13 +460,29 @@ def build_training(args, log=print) -> Training:
                                        num_classes=args.num_classes)
     log(f"full_flops (dense multiply-adds): {full_flops / 1e9:.3f} G")
 
+    alpha_kd = args.alpha_kd
+    if args.teacher_path is None and args.data_url:
+        # The reference REQUIRES teacher weights (strict load,
+        # `train/main.py:294`); distilling a real run toward a random
+        # teacher would silently degrade accuracy, so disable KD instead.
+        # (Synthetic smoke runs keep KD to exercise the code path.)
+        log("WARNING: no --teacher_path; disabling KD (alpha_kd=0) — a "
+            "random teacher would corrupt real-data training")
+        alpha_kd = 0.0
+    if args.finetune_from:
+        got = load_loose(model, family, args.finetune_from)
+        log(f"loaded finetune weights from {args.finetune_from} ({got})")
+    if args.teacher_path:
+        got = load_loose(teacher, family, args.teacher_path)
+        log(f"loaded teacher from {args.teacher_path} ({got})")
+
     cfg = TrainConfig(
         num_epochs=epochs, steps_per_epoch=steps_per_epoch,
         base_lr=recipe.lr, lr_min=recipe.lr_min, scheduler=recipe.scheduler,
         warmup_epochs=recipe.warmup_epochs,
         t0=args.t0, t_last=args.t_last, t_last_epoch=t_last_epoch,
         temp_scheduler=args.temp_scheduler,
-        lambda_act=args.lambda_act, alpha_kd=args.alpha_kd, t_kd=args.T_kd,
+        lambda_act=args.lambda_act, alpha_kd=alpha_kd, t_kd=args.T_kd,
         label_smooth=recipe.label_smooth, target_rate=args.target_rate,
         full_flops=full_flops,
     )
@@ -359,18 +507,32 @@ def build_training(args, log=print) -> Training:
                                    seed=args.seed),
         eval_step=make_eval_step(model, cfg),
         epochs=epochs, batch_size=batch_size,
-        steps_per_epoch=steps_per_epoch)
+        steps_per_epoch=steps_per_epoch, train_loader=train_loader,
+        val_loader=val_loader)
+
+
+def train_batches(tr: Training, epoch: int):
+    """One epoch's host batches: the image folder's, or synthetic ones."""
+    if tr.train_loader is not None:
+        return tr.train_loader.epoch(epoch)
+    return synthetic_batches(tr.batch_size, tr.args.input_size,
+                             tr.args.num_classes, tr.steps_per_epoch,
+                             seed=epoch)
 
 
 def _validate(tr: Training):
-    """Two synthetic validation batches; batch-size-weighted means."""
+    """The val folder (or two synthetic batches), a partial last batch
+    wrap-padded and weighted; batch-size-weighted means."""
     top1 = top5 = act = gflops = 0.0
     n_val = 0.0
     density_rows = None
-    for images, labels in synthetic_batches(
-            tr.batch_size, tr.args.input_size, tr.args.num_classes, 2,
-            seed=10_000):
-        s = tr.eval_step(*tr.to_device(images, labels))
+    batches = (tr.val_loader.epoch(0) if tr.val_loader is not None
+               else synthetic_batches(tr.batch_size, tr.args.input_size,
+                                      tr.args.num_classes, 2, seed=10_000))
+    for images, labels in batches:
+        images, labels, w = _pad_val_batch(images, labels, tr.batch_size)
+        x, y = tr.to_device(images, labels)
+        s = tr.eval_step(x, y, torch.from_numpy(w).to(tr.device))
         bsz = float(s["n_valid"])
         top1 += float(s["top1"]) * bsz
         top5 += float(s["top5"]) * bsz
@@ -379,6 +541,10 @@ def _validate(tr: Training):
         n_val += bsz
         rows = _density_rows(s) * bsz
         density_rows = rows if density_rows is None else density_rows + rows
+    if n_val == 0:
+        raise RuntimeError(
+            f"empty validation set under {tr.args.data_url!r} — check that "
+            "val/ contains class directories with images")
     return (top1 / n_val, top5 / n_val, act / n_val, gflops / n_val,
             density_rows / n_val)
 
@@ -397,9 +563,9 @@ def main(argv=None):
     state, epochs, steps_per_epoch = tr.state, tr.epochs, tr.steps_per_epoch
 
     if args.evaluate_from:
-        payload = torch.load(args.evaluate_from, map_location=tr.device,
-                             weights_only=True)
-        tr.model.load_state_dict(payload["model"])
+        # evaluation only (reference `main.py:304-307,435-436`)
+        load_for_evaluation(tr.model, arch_family(args.arch),
+                            args.evaluate_from)
         top1, top5, act, gflops, _ = _validate(tr)
         log(f"evaluate: top1 {top1:.3f} top5 {top5:.3f} "
             f"act_rate {act:.3f} GFLOPs {gflops:.3f}")
@@ -436,9 +602,7 @@ def main(argv=None):
         dev_count = 0
         t0 = time.time()
         m = {}
-        for i, (images, labels) in enumerate(synthetic_batches(
-                tr.batch_size, args.input_size, args.num_classes,
-                steps_per_epoch, seed=epoch)):
+        for i, (images, labels) in enumerate(train_batches(tr, epoch)):
             m = tr.train_step(state, *tr.to_device(images, labels))
             bsz = len(labels)
             for k in meters:

@@ -2,8 +2,11 @@
 the arguments of the JAX CLI's smoke test (`tests/test_train_cli.py`:
 ``laud_deit_tiny``, 2 steps, batch 8, 32x32, 10 classes) plus ``--device
 cpu``. It writes what the JAX CLI writes, resumes from its own checkpoint,
-trains the QAT variant, evaluates a checkpoint it wrote, and refuses the
-flags of later slices. The CNN archs run the same way at 32x32
+trains the QAT variant, evaluates a reference-format checkpoint (and
+refuses its own ``step_<n>.pt`` there), takes the data slice's flags
+(``--data_url``, ``--finetune_from``, ``--teacher_path``, the
+augmentations) and refuses the parallel slice's. The CNN archs run the same
+way at 32x32
 (``uni_resnet50``: 16 blocks, so a 4 x 16 density matrix, rows
 s3/s2/s1/channel as the JAX CLI stacks them)."""
 
@@ -15,8 +18,11 @@ import shutil
 import numpy as np
 import pytest
 import torch
+from PIL import Image
 
 from laudnet_tpu.train import main as jmain
+from laudnet_tpu_torch.convert import (save_pth_tar, to_flax_batch_stats,
+                                       to_flax_tree)
 from laudnet_tpu_torch.train import main as tmain
 from laudnet_tpu_torch.train.checkpoint import CheckpointManager
 from laudnet_tpu_torch.train.hyperparams import RECIPES, get_hyperparams
@@ -59,12 +65,63 @@ def test_train_main_vit_smoke_and_auto_resume(tmp_path):
     with open(tmp_path / "log.txt") as f:
         assert [r[0] for r in csv.reader(f)] == ["epoch", "0", "1"]
 
-    # --evaluate_from a checkpoint this CLI wrote
+    # --evaluate_from the trained weights in a reference (timm) file; the
+    # policy heads stay as initialised
+    tr = tmain.build_training(tmain.parse_args(BASE), log=lambda *_: None)
+    saved = torch.load(tmp_path / "ckpt" / "step_4.pt", weights_only=True)
+    tr.model.load_state_dict(saved["model"])
+    deit = _write_timm_deit(tr.model, tmp_path / "deit.pth")
     top1 = tmain.main(BASE + ["--train_url", str(tmp_path / "eval"),
-                              "--evaluate_from",
-                              str(tmp_path / "ckpt" / "step_4.pt")])
+                              "--evaluate_from", deit])
     assert 0.0 <= top1 <= 100.0
     assert "evaluate: top1" in open(tmp_path / "eval" / "train.log").read()
+    os.unlink(deit)
+
+
+def _write_timm_deit(model, path, **extra):
+    """``model``'s weights under timm's DeiT names (what the reference's
+    ViT checkpoints carry; no policy heads), saved as a ``.pth``."""
+    tree = to_flax_tree(model)
+    state = {"patch_embed.proj.weight":
+             tree["patch_embed"]["kernel"].transpose(3, 2, 0, 1),
+             "patch_embed.proj.bias": tree["patch_embed"]["bias"],
+             "cls_token": tree["cls_token"], "pos_embed": tree["pos_embed"],
+             "norm.weight": tree["norm"]["scale"],
+             "norm.bias": tree["norm"]["bias"],
+             "head.weight": tree["head"]["kernel"].T,
+             "head.bias": tree["head"]["bias"]}
+    timm = {"qkv": "attn.qkv", "proj": "attn.proj", "fc1": "mlp.fc1",
+            "fc2": "mlp.fc2", "norm1": "norm1", "norm2": "norm2"}
+    for i in range(len(model.blocks)):
+        for mod, name in timm.items():
+            for leaf, v in tree[f"block_{i}"][mod].items():
+                state[f"blocks.{i}.{name}." + ("bias" if leaf == "bias"
+                                               else "weight")] = (
+                    v.T if leaf == "kernel" else v)
+    torch.save({"model": {k: torch.from_numpy(np.ascontiguousarray(v))
+                          for k, v in state.items()}, **extra}, path)
+    return str(path)
+
+
+def _write_reference_resnet(model, path):
+    """``model``'s weights in the reference trainer's ``.pth.tar``."""
+    variables = {"params": to_flax_tree(model),
+                 "batch_stats": to_flax_batch_stats(model)}
+    save_pth_tar(variables, str(path), epoch=0)
+    return str(path)
+
+
+def _image_folder(root):
+    """train/ and val/ with 2 classes of 4 JPEGs of 24-60 px."""
+    rng = np.random.default_rng(0)
+    for split in ("train", "val"):
+        for c in range(2):
+            os.makedirs(root / split / str(c))
+            for i in range(4):
+                w, h = (int(v) for v in rng.integers(24, 60, 2))
+                Image.fromarray(rng.integers(0, 255, (h, w, 3), np.uint8)
+                                ).save(root / split / str(c) / f"{i}.jpg")
+    return str(root)
 
 
 @pytest.mark.parametrize("extra", [
@@ -85,7 +142,7 @@ def test_train_main_variants(tmp_path, extra):
 
 @pytest.mark.parametrize("flags", [
     ["--arch", "uni_resnet50"], ["--arch", "lad_regnet_y_400mf"],
-    ["--conv_impl", "int8_qat"], ["--data_url", "/data/imagenet"],
+    ["--conv_impl", "int8_qat"], ["--data_url", "IMAGES"],
     ["--finetune_from", "deit.pth"], ["--teacher_path", "deit.pth"],
     ["--tp", "2"], ["--fsdp"], ["--pp", "2"], ["--dist_process_id", "0"],
     ["--autoaugment"]],
@@ -99,6 +156,30 @@ def test_flags_of_later_slices_raise(tmp_path, flags):
         # the RegNet archs train too: the JAX CLI's RegNet smoke run
         # (`tests/test_train_cli.py::test_train_main_regnet_smoke`)
         _regnet_run(tmp_path, flags)
+        return
+    if flags[0] in ("--data_url", "--autoaugment"):
+        # the data slice's flags train: on an image folder, the augmentation
+        # through the PIL pipeline
+        data = _image_folder(tmp_path / "images")
+        argv = BASE + ["--epochs", "1", "--train_url", str(tmp_path / "run"),
+                       "--batch_size", "4", "--data_url", data]
+        if flags[0] == "--autoaugment":
+            argv += flags
+        assert np.isfinite(tmain.main(argv))
+        log = open(tmp_path / "run" / "train.log").read()
+        assert "epoch 0 [1/2]" in log and "val top1" in log
+        assert ("input pipeline: PIL" in log) == (flags[0] == "--autoaugment")
+        return
+    if flags[0] in ("--finetune_from", "--teacher_path"):
+        # ... and take a reference DeiT checkpoint (timm names)
+        source = tmain.build_training(tmain.parse_args(BASE + ["--seed", "9"]),
+                                      log=lambda *_: None).teacher
+        deit = _write_timm_deit(source, tmp_path / flags[1])
+        best = tmain.main(BASE + ["--epochs", "1", "--train_url",
+                                  str(tmp_path / "run"), flags[0], deit])
+        assert np.isfinite(best)
+        assert "loaded " in open(tmp_path / "run" / "train.log").read()
+        os.unlink(deit)
         return
     with pytest.raises(NotImplementedError, match="slice of the port"):
         tmain.main(BASE + ["--train_url", str(tmp_path)] + flags)
@@ -168,11 +249,38 @@ def test_train_main_cnn_smoke_resume_and_evaluate(tmp_path):
     log = open(tmp_path / "train.log").read()
     assert "auto-resumed from step 2" in log and "epoch 1 [0/2]" in log
     assert ckpt.latest_step() == 4
+    # the trained weights in the reference trainer's format, evaluated
+    args = tmain.parse_args(CNN_BASE + ["--arch", "uni_resnet50"])
+    tr = tmain.build_training(args, log=lambda *_: None)
+    tr.model.load_state_dict(torch.load(tmp_path / "ckpt" / "step_4.pt",
+                                        weights_only=True)["model"])
+    ref = _write_reference_resnet(tr.model, tmp_path / "flagship.pth.tar")
     top1 = tmain.main(CNN_BASE + [
         "--arch", "uni_resnet50", "--train_url", str(tmp_path / "eval"),
-        "--evaluate_from", str(tmp_path / "ckpt" / "step_4.pt")])
+        "--evaluate_from", ref])
     assert 0.0 <= top1 <= 100.0
+    assert top1 == tmain._validate(tr)[0]
     ckpt.close()
+    os.unlink(ref)
+    _drop_checkpoints(tmp_path)
+
+
+@pytest.mark.parametrize("flags", [[], ["--arch", "uni_resnet50"]],
+                         ids=["vit", "cnn"])
+def test_evaluate_from_refuses_the_cli_s_own_checkpoint(tmp_path, flags):
+    """``--evaluate_from`` reads reference checkpoints. Given the
+    ``step_<n>.pt`` this CLI writes, the converter finds names it does not
+    know and raises: no model is evaluated with weights half loaded."""
+    base = CNN_BASE if flags else BASE
+    tr = tmain.build_training(tmain.parse_args(base + flags),
+                              log=lambda *_: None)
+    CheckpointManager(str(tmp_path / "ckpt")).save(0, tr.state)
+    with pytest.raises((KeyError, ValueError),
+                       match="unmapped checkpoint keys|not plain-DeiT"):
+        tmain.main(base + flags + ["--train_url", str(tmp_path / "eval"),
+                                   "--evaluate_from",
+                                   str(tmp_path / "ckpt" / "step_0.pt")])
+    assert "evaluate: top1" not in open(tmp_path / "eval" / "train.log").read()
     _drop_checkpoints(tmp_path)
 
 
