@@ -113,7 +113,23 @@ each raising on failure:
     back by ``--teacher_path`` and ``--finetune_from`` (f32 logits bit for
     bit the source models'), a fine-tuning run of the flagship on the
     folder, ``--evaluate_from`` on the flagship file (the source model's
-    top-1) and on a timm-named DeiT-S file (the policy heads merged).
+    top-1) and on a timm-named DeiT-S file (the policy heads merged);
+15. parallel (`laudnet_tpu_torch/parallel/`): ``train.main.main`` over a
+    group of one NCCL rank (``--dist_*``), plain and ``--fsdp``, 3 steps
+    each (B4 and B5 counted, losses finite), the first step of each held
+    to the step without ``--dist_*`` at TRAIN_REL; the snapped DeiT-S
+    engine over a one-rank mesh (logits bit for bit the engine without
+    one); B4 and B5 on the local heads of tp = 2, 3 and 6 (DeiT-S bs128,
+    L=197, a head gate) within ULPS of their plain versions, the ranks'
+    outputs joined against the all-heads launch; then which collectives
+    gloo takes on CUDA tensors in two processes on the card
+    (`tools/probe_dist.py`), and the dry run's legs those allow
+    (`entry.dryrun_multichip(2, device='cuda', backend='gloo',
+    full_width=True)`: DeiT-S at full width on a dp1 x tp2 mesh, then its
+    dp and fsdp legs again on a dp2 x tp1 mesh, so the data group's
+    exchanges run across the two ranks (the fsdp one where the probe's
+    whole FSDP2 step passes); each leg held to one process on the whole
+    batch, PARALLEL_BOUNDS).
 
 Prints a JSON line of the kernels, then as its last line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX. Nothing runs at
@@ -126,8 +142,8 @@ a changed kernel), ``python3 chip_smoke.py train`` runs phases 1-3 and 6,
 (every mode set, the stage breakdown, the launch costs of
 `tools/probe_host.py`), ``python3 chip_smoke.py engine`` runs phases 1-2
 and 10, ``python3 chip_smoke.py regnet`` phases 1-2 and 11-13,
-``python3 chip_smoke.py data`` phases 1-2 and 14, and ``python3
-chip_smoke.py profile`` prints, instead of
+``python3 chip_smoke.py data`` phases 1-2 and 14, ``python3 chip_smoke.py
+parallel`` phases 1-2 and 15, and ``python3 chip_smoke.py profile`` prints, instead of
 the phases, where a forward's device time goes (`torch.profiler`, by
 kernel) for the dense and snapped DeiT-S, W8A8 DeiT-S and T2T-ViT-19
 engines. None of
@@ -3241,6 +3257,246 @@ def phase_data(dev, card):
                 raise AssertionError("--evaluate_from the DeiT-S file")
 
 
+# --- phase 15: parallel/ ---------------------------------------------------
+
+PARALLEL_STEPS = 3
+# Two processes on the one card, LAUD-DeiT-S at full width in bf16, each
+# leg against one process on the whole batch (`entry.dryrun_multichip`,
+# distances relative to the one-process result's norm): the dp step's
+# loss parts at TRAIN_REL (the two runs' products see other batch shapes
+# and round in bf16 otherwise); the tp and pp logits, the sp stream and the
+# fsdp gradient at REL_ERR_MAX (bf16 sums split over two ranks).
+PARALLEL_BOUNDS = {"dp": TRAIN_REL, "tp": REL_ERR_MAX, "sp": REL_ERR_MAX,
+                   "fsdp": REL_ERR_MAX, "pp": REL_ERR_MAX}
+# The collectives each two-process leg runs (`parallel/`): the step-0 probe
+# (`tools/probe_dist.py`) says which gloo takes on CUDA tensors; a leg that
+# needs one it refuses is not run and waits for a machine with two cards.
+LEG_COLLECTIVES = {
+    "dp": ("all_reduce", "all_gather", "broadcast"),
+    "tp": ("all_reduce", "all_gather", "broadcast"),
+    "sp": ("all_reduce", "all_gather", "broadcast"),
+    "fsdp": ("all_reduce", "all_gather", "broadcast",
+             "all_gather_into_tensor", "reduce_scatter_tensor"),
+    "pp": ("all_reduce", "all_gather", "broadcast", "send_recv"),
+}
+
+
+def phase_parallel(dev, card):
+    """Phase 15 (module docstring): world size 1 over NCCL through the CLI,
+    plain and --fsdp; the one-rank ServingEngine(mesh=); B4/B5 on the
+    local heads of tp = 2, 3, 6; two processes on the card over gloo."""
+    import torch.distributed as dist
+
+    from laudnet_tpu_torch.entry import dryrun_multichip
+    from laudnet_tpu_torch.ops.vit_attention import (
+        fused_vit_attention, reference_vit_attention,
+        reference_vit_attention_bwd)
+    from laudnet_tpu_torch.parallel import make_mesh
+    from laudnet_tpu_torch.parallel.mesh import free_port
+    from laudnet_tpu_torch.parallel.tp import (ModelParallel, local_shard,
+                                               tp_fused_vit_attention)
+    from laudnet_tpu_torch.tools.probe_dist import (COLLECTIVES, FSDP_TRIALS,
+                                                    trials)
+    from laudnet_tpu_torch.train import main as train_main
+
+    t0 = time.perf_counter()
+    # --- (a) one process, world size 1 over NCCL ---------------------------
+    dist_argv = ["--dist_coordinator", f"127.0.0.1:{free_port()}",
+                 "--dist_num_processes", "1", "--dist_process_id", "0"]
+    argv = [a for a in TRAIN_ARGV]
+    argv[argv.index("--steps_per_epoch") + 1] = str(PARALLEL_STEPS)
+    for extra in ([], ["--fsdp"]):
+        with tempfile.TemporaryDirectory() as out_dir:
+            t = time.perf_counter()
+            best, delta = counted(lambda: train_main.main(
+                argv + dist_argv + extra + ["--train_url", out_dir]))
+            secs = time.perf_counter() - t
+            with open(f"{out_dir}/log.txt") as f:
+                header, row = (ln.strip().split(",") for ln in f.readlines())
+            log = open(f"{out_dir}/train.log").read()
+        n_b4 = delta["fused_vit_attention"]
+        n_b5 = delta["fused_vit_attention_bwd"]
+        print(f"parallel: train.main world size 1 over NCCL "
+              f"{' '.join(extra) or '(data parallel)'}: {PARALLEL_STEPS} "
+              f"steps and validation in {secs:.1f} s, B4 {n_b4}, B5 {n_b5}, "
+              f"log.txt {dict(zip(header, row))}")
+        if (n_b4 != 24 * PARALLEL_STEPS + 24 or n_b5 != 12 * PARALLEL_STEPS
+                or not all(math.isfinite(float(v)) for v in row)
+                or "nan" in log or ("FSDP" in log) != bool(extra)):
+            raise AssertionError("parallel: the world-size-1 run is wrong")
+    if (dist.get_backend() != ("nccl" if dev.type == "cuda" else "gloo")
+            or dist.get_world_size() != 1):
+        raise AssertionError("parallel: the CLI did not join NCCL alone")
+
+    # the first step through the group (plain and FSDP) against the CLI's
+    # step without --dist_*, same seed and batch
+    images, labels = next(train_main.synthetic_batches(B, IMG, 1000, 1,
+                                                       seed=0))
+    quiet = lambda *a, **k: None
+
+    from torch.profiler import ProfilerActivity, profile
+
+    def first_step(extra):
+        """The training of ``argv + extra``, its first step's metrics, and
+        the qkv weight of block 0 before and after that step (gathered from
+        FSDP's shards)."""
+        tr = train_main.build_training(train_main.parse_args(argv + extra),
+                                       quiet)
+        full = lambda p: (p.full_tensor() if hasattr(p, "full_tensor")
+                          else p).detach().float().clone()
+        before = full(tr.model.blocks[0].qkv.weight)
+        tr.batch = tr.to_device(images, labels)
+        m = tr.train_step(tr.state, *tr.batch)
+        if hasattr(tr.model, "reshard"):
+            tr.model.reshard()
+        return tr, {k: float(v) for k, v in m.items()}, before, full(
+            tr.model.blocks[0].qkv.weight)
+
+    trainings = {}
+    trainings["no group"], plain, before, after = first_step([])
+    for label, extra in (("dp", dist_argv),
+                         ("--fsdp", dist_argv + ["--fsdp"])):
+        trainings[label], got, _, moved = first_step(extra)
+        worst = max(abs(got[k] - plain[k]) / abs(plain[k])
+                    for k in LOSS_PARTS)
+        step_rel = ((moved - after).norm() / (after - before).norm()).item()
+        print(f"parallel: first step {label} over the group vs without: "
+              + ", ".join(f"{k} {got[k]:.6g} / {plain[k]:.6g}"
+                          for k in LOSS_PARTS)
+              + f"; worst relative difference {worst:.3g} (bound "
+              f"{TRAIN_REL}); block 0's qkv update {step_rel:.3g} of its "
+              f"norm apart (bound {TRAIN_REL})")
+        if not (worst <= TRAIN_REL and step_rel <= TRAIN_REL):
+            raise AssertionError("parallel: the step over the group "
+                                 "disagrees with the step without it")
+    # the three steps timed in turns (a b c c b a, twice), then each
+    # profiled for 2 steps: kernel ms, idle share, NCCL kernels, host calls
+    readings = {k: [] for k in trainings}
+    for order in (list(trainings), list(trainings)[::-1]) * 2:
+        for k in order:
+            tr = trainings[k]
+            readings[k].append(time_ms(lambda: tr.train_step(
+                tr.state, *tr.batch), reps=3, warmup=1))
+    for k, tr in trainings.items():
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(2):
+                tr.train_step(tr.state, *tr.batch)
+            torch.cuda.synchronize()
+        averages = prof.key_averages()
+        kernels = [e for e in averages if e.device_type.name == "CUDA"]
+        busy = sum(e.device_time_total for e in kernels) / 2 / 1e3
+        nccl = sum(e.device_time_total for e in kernels
+                   if "nccl" in e.key.lower()) / 2 / 1e3
+        host = {e.key: e.count // 2 for e in averages if e.key in (
+            "cudaLaunchKernel", "cudaLaunchKernelExC", "cudaMemcpyAsync",
+            "cudaStreamSynchronize", "aten::item")}
+        ms = statistics.median(readings[k])
+        print(f"parallel: train step ({k}): {ms:.4f} ms (readings "
+              f"{', '.join(f'{v:.2f}' for v in readings[k])}), {busy:.4f} "
+              f"ms of kernels in {len(kernels)} kernels, idle share "
+              f"{max(0.0, 1 - busy / ms):.4f}, NCCL kernels {nccl:.4f} ms, "
+              f"host calls a step {host} [{card}]")
+    del trainings
+
+    # the one-rank ServingEngine(mesh=): DeiT-S snapped through the block
+    # engine, logits equal to the engine without a mesh
+    gen = torch.Generator(dev).manual_seed(21)
+    deit = laud_deit_small(token_skip=True, head_skip=False,
+                           layer_skip=False, token_capacity=NOMINAL,
+                           device=dev, generator=gen
+                           ).to(torch.bfloat16).eval()
+    x = torch.randn(B, IMG, IMG, 3, generator=gen, device=dev)
+    alone = ServingEngine(deit, snap_capacities=True)(x)
+    engine = ServingEngine(deit, snap_capacities=True,
+                           mesh=make_mesh(device=dev))
+    served, delta = counted(lambda: engine(x))
+    equal = torch.equal(served, alone)
+    print(f"parallel: ServingEngine(mesh=1-rank) on DeiT-S snapped: logits "
+          f"{'bit for bit' if equal else 'DIFFER from'} the engine without "
+          f"a mesh; launches {delta}")
+    if not equal or not (delta["fused_vit_block"]
+                         or delta["fused_vit_segment"]):
+        raise AssertionError("parallel: the mesh engine serves otherwise")
+
+    # --- (b) B4 / B5 on local heads, DeiT-S bs128 L=197 with a head mask --
+    g = torch.Generator().manual_seed(22)
+    d, heads = DEIT["d"], DEIT["heads"]
+    qkv = torch.randn(B, L_FULL, 3 * d, generator=g).to(dev, torch.bfloat16)
+    km = key_mask(g, L_FULL, dev, ragged=True)
+    hm = head_gate(g, heads, dev)
+    gout = torch.randn(B, L_FULL, d, generator=g).to(dev, torch.bfloat16)
+    scale = (d // heads) ** -0.5
+    whole = fused_vit_attention(qkv, km, hm, heads, scale)
+    for tp in (2, 3, 6):
+        h_loc = heads // tp
+        outs = []
+        for r in range(tp):
+            q_loc = local_shard(qkv, 2, r, tp, sections=3)
+            hm_loc = hm[:, r * h_loc:(r + 1) * h_loc].contiguous()
+            out = tp_fused_vit_attention(q_loc, km, hm, heads, scale,
+                                         ModelParallel(None, r, tp))
+            ref, stats = reference_vit_attention(q_loc, km, hm_loc, h_loc,
+                                                 scale, return_stats=True)
+            err = (out.float() - ref.float()).abs().max().item()
+            q_g = q_loc.detach().requires_grad_()
+            o_g = fused_vit_attention(q_g, km, hm_loc, h_loc, scale)
+            g_loc = local_shard(gout, 2, r, tp)
+            o_g.backward(g_loc)
+            ref_dq, _ = reference_vit_attention_bwd(
+                q_loc, km, hm_loc, g_loc, h_loc, scale, stats=stats)
+            err_b = (q_g.grad.float() - ref_dq.float()).abs().max().item()
+            if not (err <= ulp_tol(ref) and err_b <= ulp_tol(ref_dq)):
+                raise AssertionError(
+                    f"parallel: B4/B5 on {h_loc} local heads (tp={tp}, "
+                    f"rank {r}) off their plain versions: {err:.3g} / "
+                    f"{err_b:.3g}")
+            outs.append(out)
+        joined = torch.cat(outs, -1)
+        diff = (joined.float() - whole.float()).abs().max().item()
+        print(f"parallel: tp={tp}: B4 and B5 on {h_loc} local head(s) within "
+              f"{ULPS} ulps of their plain versions on every rank; the "
+              f"ranks' outputs joined are "
+              + ("bit for bit the all-heads launch" if diff == 0 else
+                 f"{diff:.3g} from the all-heads launch") + f" [{card}]")
+
+    # --- (c) two processes on the card over gloo --------------------------
+    probe = trials("gloo", COLLECTIVES + FSDP_TRIALS)
+    print(f"parallel: gloo on CUDA tensors: {probe}")
+    legs = tuple(leg for leg, needs in LEG_COLLECTIVES.items()
+                 if all(probe[n] == "ok" for n in needs))
+    waiting = [leg for leg in LEG_COLLECTIVES if leg not in legs]
+    if waiting:
+        print(f"parallel: legs that wait for a machine with two cards (a "
+              f"collective gloo refuses on CUDA tensors): {waiting}")
+    # dp1 x tp2 for every leg the probe allows, then dp2 x tp1 for the
+    # data-parallel legs (their data group has two ranks only there, so
+    # FSDP2's whole step over the two ranks must pass the probe)
+    dp2_legs = tuple(leg for leg in legs if leg == "dp" or (
+        leg == "fsdp" and probe["fsdp2_step"] == "ok"))
+    if "fsdp" in legs and "fsdp" not in dp2_legs:
+        print(f"parallel: the dp2 x tp1 fsdp leg waits for a machine with "
+              f"two cards: FSDP2's step over gloo on CUDA tensors "
+              f"{probe['fsdp2_step']}")
+    for model_par, which in ((2, legs), (1, dp2_legs)):
+        if not which:
+            continue
+        t = time.perf_counter()
+        dist_ = dryrun_multichip(2, device=dev.type, backend="gloo",
+                                 full_width=True, legs=which,
+                                 model_parallel=model_par)
+        print(f"parallel: two processes on the card, LAUD-DeiT-S full width, "
+              f"dp{2 // model_par} x tp{model_par}: {dist_} (bounds "
+              f"{PARALLEL_BOUNDS}) in {time.perf_counter() - t:.1f} s")
+        for leg, v in dist_.items():
+            if not v <= PARALLEL_BOUNDS[leg]:
+                raise AssertionError(f"parallel: leg {leg} (dp"
+                                     f"{2 // model_par} x tp{model_par}) is "
+                                     f"{v} from one process")
+    dist.destroy_process_group()
+    print(f"parallel: phase 15 in {time.perf_counter() - t0:.1f} s [{card}]")
+
+
 REPLACES = {
     "fused_vit_block": "laudnet_tpu/ops/pallas/vit_block.py:303",
     "fused_vit_segment": "laudnet_tpu/ops/pallas/vit_block.py:472",
@@ -3283,6 +3539,11 @@ def main():
     if sys.argv[1:] == ["data"]:
         phase_data(dev, card)
         print(f"data phase passed in {time.perf_counter() - t0:.1f} s "
+              f"[{card}]")
+        return
+    if sys.argv[1:] == ["parallel"]:
+        phase_parallel(dev, card)
+        print(f"parallel phase passed in {time.perf_counter() - t0:.1f} s "
               f"[{card}]")
         return
     if sys.argv[1:] == ["engine"]:
@@ -3328,6 +3589,8 @@ def main():
     timed("simulator")
     phase_data(dev, card)
     timed("real input and reference checkpoints")
+    phase_parallel(dev, card)
+    timed("parallel")
     launches = MAIN_PATH_LAUNCHES
     kernels = []
     for name, rows in results.items():

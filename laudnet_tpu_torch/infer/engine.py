@@ -122,13 +122,24 @@ class ServingEngine:
         normalised after P.V), recorded on ``plan.fast_math``; it does NOT
         affect ``plan.exact``, which tracks policy approximations.
         ``predictor``: the latency model the plan asks (default: the H100
-        model of ``spec`` at ``batch_size``, `sim/h100.py`). ``mesh``
-        (data-parallel serving over several cards) is not ported yet."""
+        model of ``spec`` at ``batch_size``, `sim/h100.py`). ``mesh``: a
+        ``DeviceMesh`` (`parallel/mesh.py::make_mesh`) to serve
+        data-parallel over, as JAX's engine does: the weights replicated
+        from the first rank, each call's global batch split over the mesh's
+        first dim, every rank running the planned path on its slice, and
+        the logits gathered on every rank (every rank calls the engine with
+        the same batch)."""
+        self.mesh = mesh
         if mesh is not None:
-            raise NotImplementedError(
-                "ServingEngine(mesh=...) serves data-parallel over a device "
-                "mesh; the port's parallel/ slice (laudnet_tpu/parallel/) "
-                "is not ported yet")
+            from torch.distributed.device_mesh import DeviceMesh
+
+            from laudnet_tpu_torch.parallel.mesh import replicate
+
+            if not isinstance(mesh, DeviceMesh):
+                raise TypeError(f"mesh must be a torch DeviceMesh "
+                                f"(parallel/mesh.py::make_mesh), got "
+                                f"{type(mesh).__name__}")
+            replicate(model, mesh)
         self.snap_capacities = snap_capacities
         self.fast_math = fast_math
         self.model = model
@@ -402,4 +413,16 @@ class ServingEngine:
         if not torch.is_tensor(batch):
             batch = torch.as_tensor(np.asarray(batch),
                                     device=next(self.model.parameters()).device)
-        return self._fwd(batch)
+        if self.mesh is None:
+            return self._fwd(batch)
+        import torch.distributed as dist
+
+        from laudnet_tpu_torch.parallel.mesh import shard_batch
+
+        axis = self.mesh.mesh_dim_names[0]
+        logits = self._fwd(shard_batch(batch, self.mesh, axis))
+        group = self.mesh.get_group(axis)
+        parts = [torch.empty_like(logits)
+                 for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, logits.contiguous(), group=group)
+        return torch.cat(parts)

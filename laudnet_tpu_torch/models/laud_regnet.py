@@ -45,6 +45,7 @@ from laudnet_tpu_torch.models.maskers import (ChannelMaskerConvLinear,
                                               SpatialMasker,
                                               default_bias_init_)
 from laudnet_tpu_torch.ops import masking
+from laudnet_tpu_torch.ops.batch_stats import global_mean
 from laudnet_tpu_torch.ops.norm import BatchNorm
 
 
@@ -215,9 +216,9 @@ class LAUDRegNetBlock(nn.Module):
             spatial_mask3 = masking.upsample_mask_nearest(
                 spatial_mask3, self.output_size)
             m2 = masking.expand_mask(spatial_mask3, stride=1, padding=0)
-            s2 = m2.float().mean()
+            s2 = global_mean(m2.float().mean())
             m1 = masking.expand_mask(m2, stride=self.stride, padding=1)
-            s1 = m1.float().mean()
+            s1 = global_mean(m1.float().mean())
 
         sparse_flops = f32(channel_mask_flops + spatial_mask_flops)
         dense_flops = f32(channel_mask_flops + spatial_mask_flops)

@@ -50,9 +50,14 @@ from laudnet_tpu_torch.models.maskers import (ChannelMaskerConvLinear,
                                               default_bias_init_,
                                               default_weight_init_)
 from laudnet_tpu_torch.ops import masking
+from laudnet_tpu_torch.ops.batch_stats import global_mean
 from laudnet_tpu_torch.ops import sparse as sp
 from laudnet_tpu_torch.ops.norm import BatchNorm
 from laudnet_tpu_torch.ops.quant import QuantConv
+from laudnet_tpu_torch.parallel.tp import (copy_to_model_parallel,
+                                           gather_from_model_parallel,
+                                           reduce_from_model_parallel,
+                                           scatter_to_model_parallel)
 
 EXPANSION = 4
 CONV_IMPLS = ("dense", "int8", "int8_qat")
@@ -83,6 +88,12 @@ class LAUDOutput:
     flops_perc: torch.Tensor               # (total_blocks,)
     flops: torch.Tensor                    # total sparse multiply-adds
     spatial_s3_img: Any = None             # per stage, each (blocks, B)
+
+
+# a pytree node, so that code walking a forward's outputs finds its tensors
+# (FSDP2 hooks its gradient's gathers onto them, `parallel/fsdp.py`)
+torch.export.register_dataclass(
+    LAUDOutput, serialized_type_name=f"{__name__}.LAUDOutput")
 
 
 def quantised(conv_impl: str, training: bool) -> bool:
@@ -198,6 +209,9 @@ class LAUDBottleneck(nn.Module):
             self.downsample_conv = make_conv(conv_impl, inplanes, out_planes,
                                              1, stride, **kw)
             self.downsample_bn = BatchNorm(out_planes, **kw)
+        # tensor parallelism (`parallel/tp.py::shard_params`): conv2 and
+        # bn2 hold this rank's channels, conv3 its input channels
+        self.tp = None
 
     def sparse_eligible(self, training: bool) -> bool:
         """The gather/scatter path: eval only, spatial mode, stride 1, one
@@ -264,11 +278,11 @@ class LAUDBottleneck(nn.Module):
             spatial_mask2 = masking.expand_mask(spatial_mask3, stride=1,
                                                 padding=0)
             s2_img = spatial_mask2.float().mean(dim=(1, 2, 3))
-            s2 = s2_img.mean()
+            s2 = global_mean(s2_img.mean())
             spatial_mask1 = masking.expand_mask(spatial_mask2,
                                                 stride=self.stride, padding=1)
             s1_img = spatial_mask1.float().mean(dim=(1, 2, 3))
-            s1 = s1_img.mean()
+            s1 = global_mean(s1_img.mean())
 
         # --- FLOPs bookkeeping ---------------------------------------------
         masker_flops = f32(channel_mask_flops + spatial_mask_flops)
@@ -314,15 +328,26 @@ class LAUDBottleneck(nn.Module):
             out = sp.scatter_patches_add(identity, patches, idx, valid,
                                          patch)
         else:
+            mp = self.tp
             out = conv(self.conv1, x)
             if channel_mask is not None:
                 out = masking.apply_channel_mask(out, channel_mask)
             out = torch.relu(bn(self.bn1, out))
+            if mp is not None:  # column-parallel conv2: this rank's channels
+                out = copy_to_model_parallel(out, mp)
             out = conv(self.conv2, out)
             if channel_mask is not None:
-                out = masking.apply_channel_mask(out, channel_mask)
+                mask2 = channel_mask
+                if mp is not None:  # the gates of this rank's channels
+                    mask2 = scatter_to_model_parallel(
+                        mask2.repeat_interleave(width // mask2.shape[-1],
+                                                dim=-1), mp)
+                out = masking.apply_channel_mask(out, mask2)
             out = torch.relu(bn(self.bn2, out))
-            out = bn(self.bn3, conv(self.conv3, out))
+            out = conv(self.conv3, out)
+            if mp is not None:  # row-parallel conv3: partial sums reduced
+                out = reduce_from_model_parallel(out, mp)
+            out = bn(self.bn3, out)
             if spatial_mask3 is not None:
                 out = masking.apply_spatial_mask(out, spatial_mask3)
             out = out + identity
@@ -398,6 +423,9 @@ class LAUDResNet(nn.Module):
                 inplanes = planes * EXPANSION
             self.block_names.append(names)
         self.fc = nn.Linear(inplanes, num_classes, **kw)
+        # tensor parallelism (`parallel/tp.py::shard_params`)
+        self.tp = None
+        self.tp_head = False
         if generator is not None:
             self.init_weights(generator)
 
@@ -458,10 +486,14 @@ class LAUDResNet(nn.Module):
         x = masking.global_avg_pool(x)
         flops = flops + x.shape[-1]
         fc = self.fc
+        if self.tp_head:  # class-sharded logits, gathered
+            x = copy_to_model_parallel(x, self.tp)
         if cd is None:
             logits = fc(x)
         else:
             logits = F.linear(x.to(cd), fc.weight.to(cd), fc.bias.to(cd))
+        if self.tp_head:
+            logits = gather_from_model_parallel(logits, self.tp)
         flops = flops + x.shape[-1] * self.num_classes
         return LAUDOutput(
             logits=logits,

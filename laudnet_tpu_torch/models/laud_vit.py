@@ -42,10 +42,15 @@ from torch import nn
 from laudnet_tpu_torch.device import resolve_device
 from laudnet_tpu_torch.models.t2t import (T2TStem, TokenPerformer,
                                           t2t_stem_flops)
+from laudnet_tpu_torch.ops.batch_stats import global_mean
 from laudnet_tpu_torch.ops.gating import binary_gate
 from laudnet_tpu_torch.ops.quant import QuantDense, fake_quant_linear
 from laudnet_tpu_torch.ops.vit_attention import (
     fused_vit_attention, reference_vit_attention)
+from laudnet_tpu_torch.parallel.tp import (
+    copy_to_model_parallel, gather_from_model_parallel,
+    reduce_from_model_parallel, scatter_to_model_parallel,
+    tp_fused_vit_attention)
 
 LN_EPS = 1e-6  # flax's LayerNorm default (torch's is 1e-5)
 
@@ -72,6 +77,12 @@ class LAUDViTOutput:
     flops_perc: torch.Tensor      # (depth,)
     flops: torch.Tensor
     token_keep: torch.Tensor      # (depth, B)
+
+
+# a pytree node, so that code walking a forward's outputs finds its tensors
+# (FSDP2 hooks its gradient's gathers onto them, `parallel/fsdp.py`)
+torch.export.register_dataclass(
+    LAUDViTOutput, serialized_type_name=f"{__name__}.LAUDViTOutput")
 
 
 def vit_block_bookkeeping(tok, hd, ak, mk, *, l_book: int, d: int, h: int,
@@ -140,6 +151,15 @@ def _linear(m: nn.Linear, x, cd, training: bool = False, qat: bool = False):
     return F.linear(x.to(cd), m.weight.to(cd), m.bias.to(cd))
 
 
+def _row_parallel(m: nn.Linear, x, cd, mp):
+    """A row-parallel product (`parallel/tp.py`): this rank's partial sum,
+    reduced over the 'model' group, then the bias once."""
+    w, bias = m.weight, m.bias
+    if cd is not None:
+        x, w, bias = x.to(cd), w.to(cd), bias.to(cd)
+    return reduce_from_model_parallel(F.linear(x, w), mp) + bias
+
+
 def _norm(m: nn.LayerNorm, x, cd):
     """LayerNorm; under mixed precision in f32 with the output rounded to
     ``cd``, as flax's LayerNorm with a compute dtype."""
@@ -186,6 +206,10 @@ class LAUDViTBlock(nn.Module):
         self.norm2 = nn.LayerNorm(dim, eps=LN_EPS, **kw)
         self.fc1 = dense(dim, self.hidden, **kw)
         self.fc2 = dense(self.hidden, dim, **kw)
+        # tensor parallelism (`parallel/tp.py::shard_params`): the 'model'
+        # group, and which branch's products are split
+        self.tp = None
+        self.tp_attn = self.tp_mlp = False
 
     def forward(self, x, token_mask, temperature=None, *,
                 training: bool = False, noise=None,
@@ -195,7 +219,9 @@ class LAUDViTBlock(nn.Module):
         gate, before this block's attention (eval only); ``book_len``: the
         original token count (N+1) the FLOPs are booked against. Training
         draws its Gumbel noise from ``noise`` in the order layer, head,
-        token."""
+        token. Under tensor parallelism the split products run on this
+        rank's slices between Megatron's collectives."""
+        mp = self.tp
         b, l, d = x.shape
         l_book = book_len or l
         h = self.num_heads
@@ -213,7 +239,8 @@ class LAUDViTBlock(nn.Module):
             pair = _policy(self.layer_policy, cls, cd).reshape(b, 2, 2)
             gate = binary_gate(pair, temperature, **gate_kw)
             attn_gate, mlp_gate = gate[:, 0], gate[:, 1]  # (B,) each
-            attn_keep, mlp_keep = attn_gate.mean(), mlp_gate.mean()
+            attn_keep, mlp_keep = global_mean(
+                torch.stack([attn_gate.mean(), mlp_gate.mean()]))
             policy_flops += d * 4
 
         head_mask = None
@@ -222,7 +249,7 @@ class LAUDViTBlock(nn.Module):
             head_mask = binary_gate(
                 _policy(self.head_policy, cls, cd).reshape(b, 2, h),
                 temperature, **gate_kw)
-            head_density = head_mask.mean()
+            head_density = global_mean(head_mask.mean())
             policy_flops += d * 2 * h
 
         token_score = torch.zeros((b, l), dtype=torch.float32,
@@ -239,7 +266,7 @@ class LAUDViTBlock(nn.Module):
             token_score = (tlogits[..., 0] - tlogits[..., 1]).float()
             policy_flops += l_book * d * 2
         # density of the current buffer, rescaled to the full length
-        token_density = token_mask.mean() * (l / l_book)
+        token_density = global_mean(token_mask.mean()) * (l / l_book)
         token_keep = token_mask.mean(dim=1) * (l / l_book)
 
         if capacity is not None and not training and capacity < l:
@@ -256,21 +283,43 @@ class LAUDViTBlock(nn.Module):
             token_score = torch.gather(token_score, 1, idx)
             l = capacity
 
-        y = _norm(self.norm1, x, cd)
-        attend = (fused_vit_attention if self.attn_impl == "fused"
-                  else reference_vit_attention)
         qat = self.linear_impl == "int8_qat"
-        out = attend(_linear(self.qkv, y, cd, training, qat), token_mask,
-                     head_mask, h, (d // h) ** -0.5)
-        out = _linear(self.proj, out, cd, training, qat)
+        scale = (d // h) ** -0.5
+        y = _norm(self.norm1, x, cd)
+        if self.tp_attn:
+            # column-parallel qkv (this rank's heads), row-parallel proj
+            qkv = _linear(self.qkv, copy_to_model_parallel(y, mp), cd,
+                          training, qat)
+            if self.attn_impl == "fused":
+                out = tp_fused_vit_attention(qkv, token_mask, head_mask, h,
+                                             scale, mp)
+            else:
+                hm = (None if head_mask is None
+                      else scatter_to_model_parallel(head_mask, mp))
+                out = reference_vit_attention(qkv, token_mask, hm,
+                                              h // mp.size, scale)
+            out = _row_parallel(self.proj, out, cd, mp)
+        else:
+            attend = (fused_vit_attention if self.attn_impl == "fused"
+                      else reference_vit_attention)
+            out = attend(_linear(self.qkv, y, cd, training, qat), token_mask,
+                         head_mask, h, scale)
+            out = _linear(self.proj, out, cd, training, qat)
         out = out * token_mask.to(out.dtype)[:, :, None]
         if attn_gate is not None:
             out = out * attn_gate.to(out.dtype)[:, None, None]
         x = x + out
 
-        y = _linear(self.fc1, _norm(self.norm2, x, cd), cd, training, qat)
-        y = _linear(self.fc2, F.gelu(y, approximate="none"), cd, training,
-                    qat)
+        y = _norm(self.norm2, x, cd)
+        if self.tp_mlp:
+            y = _linear(self.fc1, copy_to_model_parallel(y, mp), cd,
+                        training, qat)
+            y = _row_parallel(self.fc2, F.gelu(y, approximate="none"), cd,
+                              mp)
+        else:
+            y = _linear(self.fc1, y, cd, training, qat)
+            y = _linear(self.fc2, F.gelu(y, approximate="none"), cd,
+                        training, qat)
         y = y * token_mask.to(y.dtype)[:, :, None]
         if mlp_gate is not None:
             y = y * mlp_gate.to(y.dtype)[:, None, None]
@@ -343,6 +392,9 @@ class LAUDViT(nn.Module):
             for _ in range(depth))
         self.norm = nn.LayerNorm(dim, eps=LN_EPS, **kw)
         self.head = nn.Linear(dim, num_classes, **kw)
+        # tensor parallelism (`parallel/tp.py::shard_params`)
+        self.tp = None
+        self.tp_head = False
         if generator is not None:
             self.init_weights(generator)
 
@@ -447,7 +499,12 @@ class LAUDViT(nn.Module):
             flops = flops + st.sparse_flops
 
         x = _norm(self.norm, x, cd)
-        logits = _linear(self.head, x[:, 0], cd)
+        if self.tp_head:  # class-sharded logits, gathered
+            mp = self.tp
+            logits = gather_from_model_parallel(_linear(
+                self.head, copy_to_model_parallel(x[:, 0], mp), cd), mp)
+        else:
+            logits = _linear(self.head, x[:, 0], cd)
         flops = flops + self.dim * self.num_classes
 
         def stack(f):

@@ -27,6 +27,7 @@ from torch import nn
 
 from laudnet_tpu_torch.device import resolve_device
 from laudnet_tpu_torch.ops import masking
+from laudnet_tpu_torch.ops.batch_stats import global_mean
 from laudnet_tpu_torch.ops.gating import binary_gate
 from laudnet_tpu_torch.ops.norm import BatchNorm
 
@@ -96,7 +97,7 @@ class SpatialMasker(nn.Module):
         b, mh, mw, _ = logits.shape
         mask = binary_gate(logits.reshape(b, mh, mw, 2, g), temperature,
                            training=training, noise=noise)
-        return mask, mask.mean(), flops
+        return mask, global_mean(mask.mean()), flops
 
 
 class ChannelMaskerMLP(nn.Module):
@@ -147,7 +148,7 @@ class ChannelMaskerMLP(nn.Module):
             flops += c * 2 * g
         mask = binary_gate(logits.reshape(b, 2, g), temperature,
                            training=training, noise=noise)
-        return mask, mask.mean(), flops
+        return mask, global_mean(mask.mean()), flops
 
 
 class ChannelMaskerConvLinear(nn.Module):
@@ -186,4 +187,4 @@ class ChannelMaskerConvLinear(nn.Module):
         flops += in_ch * self.red + self.red * 2 * g
         mask = binary_gate(logits.reshape(b, 2, g), temperature,
                            training=training, noise=noise)
-        return mask, mask.mean(), flops
+        return mask, global_mean(mask.mean()), flops

@@ -16,13 +16,15 @@ import torch.nn.functional as F
 from torch import nn
 
 from laudnet_tpu_torch.device import resolve_device
+from laudnet_tpu_torch.ops.batch_stats import global_mean
 
 
 class BatchNorm(nn.Module):
     """BatchNorm over the last axis of an NHWC tensor.
 
-    ``use_running_average=False`` normalises with the batch statistics and
-    moves the running ones by ``1 - momentum`` (in place). The arithmetic
+    ``use_running_average=False`` normalises with the batch statistics (of
+    the global batch inside `ops.batch_stats.global_batch`) and moves the
+    running ones by ``1 - momentum`` (in place). The arithmetic
     runs in f32 whatever the input's type, and the result is cast to
     ``compute_dtype`` (the promoted type of input and parameters when that
     is None)."""
@@ -49,8 +51,11 @@ class BatchNorm(nn.Module):
                 self.weight, self.bias, False, 0.0, self.eps)
             return y.permute(0, 2, 3, 1).to(out_dtype)
         xf = x.float()
-        mean = xf.mean(dim=(0, 1, 2))
-        var = ((xf * xf).mean(dim=(0, 1, 2)) - mean * mean).clamp_min(0.0)
+        # the global batch's E[x] and E[x^2] under a data-parallel step
+        # (`ops/batch_stats.py`), one all-reduce for both
+        mean, mean_sq = global_mean(torch.stack(
+            [xf.mean(dim=(0, 1, 2)), (xf * xf).mean(dim=(0, 1, 2))]))
+        var = (mean_sq - mean * mean).clamp_min(0.0)
         with torch.no_grad():
             m = self.momentum
             self.running_mean.mul_(m).add_((1 - m) * mean)

@@ -7,6 +7,11 @@ The newest ``max_to_keep`` steps are kept; ``best/`` holds the one
 checkpoint last saved with ``is_best`` and ``best.json`` its metadata, so
 the best weights survive the rolling deletion. Files are written to a
 temporary name and renamed, so a reader never sees half a file.
+
+A state with a ``layout`` (a run over several ranks, `parallel/state.py`)
+is saved in the single-device layout: every rank takes part in gathering
+it and rank 0 writes it; a restore reads the file on every rank and lays it
+out again. Either run resumes from the other's files.
 """
 
 from __future__ import annotations
@@ -55,9 +60,16 @@ class CheckpointManager:
     def save(self, step: int, state, metadata: Optional[Dict[str, Any]] = None,
              is_best: bool = False) -> None:
         """``state``: anything with ``model``, ``optimizer`` and ``step``
-        (`train.trainer.TrainState`)."""
-        payload = {"step": int(step), "model": state.model.state_dict(),
-                   "optimizer": state.optimizer.state_dict()}
+        (`train.trainer.TrainState`). Collective under a layout: every
+        rank calls it, rank 0 writes."""
+        layout = getattr(state, "layout", None)
+        if layout is None:
+            msd, osd = state.model.state_dict(), state.optimizer.state_dict()
+        else:
+            msd, osd = layout.full_state(state.model, state.optimizer)
+            if not layout.writer:
+                return
+        payload = {"step": int(step), "model": msd, "optimizer": osd}
         _atomic(os.path.join(self.directory, f"step_{step}.pt"),
                 lambda p: torch.save(payload, p))
         for old in self.all_steps()[:-self.max_to_keep]:
@@ -87,10 +99,16 @@ class CheckpointManager:
 
     def _load(self, path: str, state, meta_path: str
               ) -> Tuple[Any, Dict[str, Any]]:
-        device = next(state.model.parameters()).device
+        layout = getattr(state, "layout", None)
+        device = ("cpu" if layout is not None
+                  else next(state.model.parameters()).device)
         payload = torch.load(path, map_location=device, weights_only=True)
-        state.model.load_state_dict(payload["model"])
-        state.optimizer.load_state_dict(payload["optimizer"])
+        if layout is None:
+            state.model.load_state_dict(payload["model"])
+            state.optimizer.load_state_dict(payload["optimizer"])
+        else:
+            layout.load_full_state(state.model, state.optimizer,
+                                   payload["model"], payload["optimizer"])
         state.step = int(payload["step"])
         metadata = {}
         if os.path.exists(meta_path):

@@ -36,8 +36,21 @@ or a LAUD-RegNet, distilled from the static RegNet of the same recipe
         --channel_dyn_granularity 2-2-2-2 --lr_mult 0.1 --amp \
         --epochs 1 --steps_per_epoch 8 --batch_size 128
 
-``--tp/--fsdp/--pp`` and ``--dist_*`` are parsed and raise
-`NotImplementedError` naming the slice that brings them.
+Several processes train one model through ``--dist_coordinator HOST:PORT
+--dist_num_processes N --dist_process_id I`` (one process per card, NCCL;
+``--device cpu`` runs gloo ranks on the CPU): each loads ``batch_size //
+N`` images (the loader's ``shard=(I, N)``), rank 0 writes the logs and
+checkpoints. On top of data parallelism, as the JAX CLI: ``--tp K``
+Megatron tensor parallelism over groups of K ranks (ViT and ResNet archs,
+`parallel/tp.py`; a ViT's fused attention runs on each rank's heads),
+``--fsdp`` the parameters and the optimizer state sharded over the data
+ranks (`parallel/fsdp.py`), ``--pp K`` the ViT trunk in K GPipe stages
+with ``--pp_microbatches`` (`parallel/pp_train.py`). On one card::
+
+    python -m laudnet_tpu_torch.train.main --arch laud_deit_small \
+        --vit_attn fused --amp --batch_size 128 --fsdp \
+        --dist_coordinator 127.0.0.1:29500 --dist_num_processes 1 \
+        --dist_process_id 0
 """
 
 from __future__ import annotations
@@ -51,6 +64,7 @@ from typing import Any, Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from laudnet_tpu_torch.data.loader import synthetic_batches
 
@@ -171,12 +185,8 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def _refuse_later_slices(args) -> None:
-    """Flags whose code is not ported yet raise; none is ignored."""
-    def later(what, which):
-        raise NotImplementedError(
-            f"{what} belongs to {which} of the port, not to this one")
-
+def _check_flags(args) -> None:
+    """Flag combinations that do not apply raise; none is ignored."""
     family = arch_family(args.arch)
     if family == "regnet" and args.conv_impl != "dense":
         raise SystemExit("--conv_impl int8_qat is LAUD-ResNet-only "
@@ -187,12 +197,6 @@ def _refuse_later_slices(args) -> None:
     if family != "vit" and args.vit_linear != "dense":
         raise SystemExit("--vit_linear applies to ViT archs; for LAUD-ResNet "
                          "QAT use --conv_impl int8_qat")
-    if args.tp != 1 or args.fsdp or args.pp != 1:
-        later("--tp/--fsdp/--pp", "the parallel slice")
-    if any(v is not None for v in (args.dist_coordinator,
-                                   args.dist_num_processes,
-                                   args.dist_process_id)):
-        later("--dist_* (multi-process training)", "the parallel slice")
 
 
 def _stage_list(spec: str, cast=str):
@@ -225,11 +229,11 @@ def _pad_val_batch(images, labels, full_bs: int):
     return images, labels, weights
 
 
-def build_loaders(args, batch_size: int, log=print):
-    """The train and val loaders of ``--data_url``: the native C++ loader
-    unless ``--no_native_loader``, an augmentation only the PIL transform
-    has, or a library that does not build says otherwise. The log names
-    the pipeline and, for PIL, why."""
+def build_loaders(args, batch_size: int, log=print, shard=(0, 1)):
+    """The train and val loaders of ``--data_url`` (this process's
+    ``shard``): the native C++ loader unless ``--no_native_loader``, an
+    augmentation only the PIL transform has, or a library that does not
+    build says otherwise. The log names the pipeline and, for PIL, why."""
     from laudnet_tpu_torch.data import (DataLoader, ImageFolderDataset,
                                         eval_transform, train_transform)
     from laudnet_tpu_torch.data import native_loader
@@ -256,13 +260,14 @@ def build_loaders(args, batch_size: int, log=print):
         log("input pipeline: native C++ loader (data/csrc/loader.cpp)")
         return (native_loader.NativeDataLoader(
                     train_ds, batch_size, train=True, size=args.input_size,
-                    seed=args.seed),
+                    seed=args.seed, shard=shard),
                 native_loader.NativeDataLoader(
                     val_ds, batch_size, train=False, size=args.input_size,
-                    shuffle=False, drop_last=False))
+                    shuffle=False, drop_last=False, shard=shard))
     log(f"input pipeline: PIL (data/transforms.py); {why}")
-    return (DataLoader(train_ds, batch_size, seed=args.seed),
-            DataLoader(val_ds, batch_size, shuffle=False, drop_last=False))
+    return (DataLoader(train_ds, batch_size, seed=args.seed, shard=shard),
+            DataLoader(val_ds, batch_size, shuffle=False, drop_last=False,
+                       shard=shard))
 
 
 def convert_checkpoint(family: str, path: str) -> dict:
@@ -350,27 +355,41 @@ class Training:
     train_step: Callable
     eval_step: Callable
     epochs: int
+    # the rows of a batch this process loads: the global batch // processes
     batch_size: int
     steps_per_epoch: int
     # the image-folder loaders of --data_url; None on synthetic data
     train_loader: Any = None
     val_loader: Any = None
+    # several processes: the mesh, this process's rank and their count
+    mesh: Any = None
+    proc_id: int = 0
+    n_proc: int = 1
 
     def to_device(self, images: np.ndarray, labels: np.ndarray):
         """A host batch onto the device; through pinned memory on a card,
-        so the copy does not hold the host."""
+        so the copy does not hold the host. Under tensor or pipeline
+        parallelism the ranks of a group join their rows
+        (`parallel/mesh.py::put_global_batch`)."""
         x, y = torch.from_numpy(images), torch.from_numpy(labels).long()
+        return self.place(x), self.place(y)
+
+    def place(self, t: torch.Tensor) -> torch.Tensor:
         if self.device.type == "cuda":
-            x, y = x.pin_memory(), y.pin_memory()
-        return (x.to(self.device, non_blocking=True),
-                y.to(self.device, non_blocking=True))
+            t = t.pin_memory()
+        t = t.to(self.device, non_blocking=True)
+        if self.mesh is None:
+            return t
+        from laudnet_tpu_torch.parallel import put_global_batch
+
+        return put_global_batch(t, self.mesh)
 
 
 def build_training(args, log=print) -> Training:
     """Model, teacher, optimizer and the two steps for parsed ``args``."""
     from laudnet_tpu_torch import models
-    from laudnet_tpu_torch.device import resolve_device
     from laudnet_tpu_torch.models.laud_vit import vit_dense_flops
+    from laudnet_tpu_torch.parallel import initialize_distributed
     from laudnet_tpu_torch.train import optim
     from laudnet_tpu_torch.train.hyperparams import get_hyperparams
     from laudnet_tpu_torch.train.trainer import (
@@ -378,7 +397,13 @@ def build_training(args, log=print) -> Training:
     from laudnet_tpu_torch.utils.config import Config
     from laudnet_tpu_torch.utils.flops import resnet_full_flops
 
-    _refuse_later_slices(args)
+    _check_flags(args)
+    # before any device use; without --dist_* it joins no group
+    device = initialize_distributed(args.dist_coordinator,
+                                    args.dist_num_processes,
+                                    args.dist_process_id, device=args.device)
+    n_proc = dist.get_world_size() if dist.is_initialized() else 1
+    proc_id = dist.get_rank() if dist.is_initialized() else 0
     set_index = args.hyperparams_set_index
     if args.config:
         set_index = Config.fromfile(args.config).train_cfg[
@@ -386,8 +411,12 @@ def build_training(args, log=print) -> Training:
     recipe = get_hyperparams(set_index if set_index is not None else 2)
     epochs = args.epochs or recipe.epochs
     batch_size = args.batch_size or recipe.batch_size
+    if batch_size % n_proc:
+        raise ValueError(f"global batch {batch_size} must divide over "
+                         f"{n_proc} processes")
+    # per-process batch, the reference's per-GPU division (`main.py:324-325`)
+    local_bs = batch_size // n_proc
     t_last_epoch = args.t_last_epoch or epochs
-    device = resolve_device(args.device)
 
     # mixed precision: student AND teacher compute in bf16; the losses
     # reduce in f32
@@ -440,7 +469,8 @@ def build_training(args, log=print) -> Training:
 
     train_loader = val_loader = None
     if args.data_url:
-        train_loader, val_loader = build_loaders(args, batch_size, log)
+        train_loader, val_loader = build_loaders(args, local_bs, log,
+                                                 shard=(proc_id, n_proc))
         steps_per_epoch = len(train_loader)
     else:
         steps_per_epoch = args.steps_per_epoch or 10
@@ -475,6 +505,10 @@ def build_training(args, log=print) -> Training:
     if args.teacher_path:
         got = load_loose(teacher, family, args.teacher_path)
         log(f"loaded teacher from {args.teacher_path} ({got})")
+    if args.evaluate_from:  # full weights, before any sharding
+        load_for_evaluation(model, family, args.evaluate_from)
+    mesh, layout = lay_out(args, model, n_proc, local_bs, batch_size,
+                           device, log)
 
     cfg = TrainConfig(
         num_epochs=epochs, steps_per_epoch=steps_per_epoch,
@@ -500,15 +534,115 @@ def build_training(args, log=print) -> Training:
             weight_decay=recipe.weight_decay,
             backbone_lr_mult=args.lr_mult, masker_lr_mult=1.0,
             decay_weights_only=args.no_decay_biases)
+    if args.pp > 1:
+        from laudnet_tpu_torch.parallel import (make_pp_train_step,
+                                                pp_vit_forward)
+
+        train_step = make_pp_train_step(
+            model, teacher, optimizer, cfg, mesh=mesh,
+            microbatches=args.pp_microbatches, seed=args.seed, layout=layout)
+        eval_step = make_eval_step(
+            model, cfg, layout=layout,
+            forward=lambda x, t: pp_vit_forward(
+                model, x, t, mesh=mesh, microbatches=args.pp_microbatches))
+    else:
+        # each data shard draws its own noise; data rank 0 the one-process
+        # run's
+        data_rank = 0 if layout is None else layout.data_rank
+        train_step = make_train_step(model, teacher, optimizer, cfg,
+                                     seed=args.seed + 7919 * data_rank,
+                                     layout=layout)
+        eval_step = make_eval_step(model, cfg, layout=layout)
     return Training(
         args=args, device=device, model=model, teacher=teacher, cfg=cfg,
-        state=TrainState(step=0, model=model, optimizer=optimizer),
-        train_step=make_train_step(model, teacher, optimizer, cfg,
-                                   seed=args.seed),
-        eval_step=make_eval_step(model, cfg),
-        epochs=epochs, batch_size=batch_size,
+        state=TrainState(step=0, model=model, optimizer=optimizer,
+                         layout=layout),
+        train_step=train_step, eval_step=eval_step,
+        epochs=epochs, batch_size=local_bs,
         steps_per_epoch=steps_per_epoch, train_loader=train_loader,
-        val_loader=val_loader)
+        val_loader=val_loader, mesh=mesh, proc_id=proc_id, n_proc=n_proc)
+
+
+def lay_out(args, model, n_proc: int, local_bs: int, batch_size: int,
+            device, log):
+    """The JAX CLI's checks of ``--tp/--fsdp/--pp`` against the ranks and
+    the model (`laudnet_tpu/train/main.py:409-450`, its messages), then
+    the mesh and the model's layout on it: TP, then FSDP over the data dim,
+    or the pipeline's mesh. Returns ``(mesh, layout)``, both None for one
+    process without a group."""
+    from laudnet_tpu_torch.parallel import (RESNET_TP_RULES, VIT_TP_RULES,
+                                            fsdp_shard_params, make_mesh,
+                                            make_pp_mesh, shard_params)
+    from laudnet_tpu_torch.parallel.state import Layout
+
+    family = arch_family(args.arch)
+    if args.tp > 1 and family == "regnet":
+        raise SystemExit("--tp supports ViT and ResNet archs (no Megatron "
+                         "rules for the RegNet block layout yet)")
+    if n_proc % args.tp:
+        raise SystemExit(f"--tp {args.tp} must divide the device count "
+                         f"({n_proc})")
+    if args.pp > 1:
+        if family != "vit":
+            raise SystemExit("--pp supports ViT archs only (the trunk "
+                             "split needs homogeneous block_* layers)")
+        if args.tp > 1 or args.fsdp:
+            raise SystemExit("--pp is exclusive with --tp/--fsdp in this "
+                             "CLI (compose via parallel/ APIs directly)")
+        if n_proc % args.pp:
+            raise SystemExit(f"--pp {args.pp} must divide the device "
+                             f"count ({n_proc})")
+        if model.depth % args.pp:
+            raise SystemExit(f"--pp {args.pp} must divide the model depth "
+                             f"({model.depth})")
+        if (local_bs * n_proc) % args.pp_microbatches:
+            raise SystemExit(
+                f"global batch {local_bs * n_proc} must be divisible by "
+                f"--pp_microbatches {args.pp_microbatches}")
+    data_axis = n_proc // (args.tp * args.pp)
+    per_shard = ((local_bs * n_proc) // args.pp_microbatches
+                 if args.pp > 1 else local_bs * n_proc)
+    if per_shard % data_axis:
+        raise SystemExit(
+            f"{'microbatch' if args.pp > 1 else 'global batch'} "
+            f"{per_shard} (--batch_size {batch_size}) must be divisible "
+            f"by the data axis ({n_proc} devices / "
+            f"tp*pp {args.tp * args.pp} = {data_axis})")
+    if not dist.is_initialized() and not (args.fsdp or args.tp > 1
+                                          or args.pp > 1):
+        return None, None
+    log(f"devices: {n_proc} processes, {device}")
+    if args.pp > 1:
+        mesh = make_pp_mesh(args.pp, device=device)
+        log(f"PP: GPipe {args.pp} stages x "
+            f"{model.depth // args.pp} layers/stage, "
+            f"{args.pp_microbatches} microbatches, dp={data_axis}")
+        return mesh, Layout(
+            data_group=mesh.get_group("data"),
+            data_rank=mesh.get_local_rank("data"),
+            stage=mesh.get_local_rank("stage"), stages=args.pp,
+            stage_group=mesh.get_group("stage"),
+            per_stage=model.depth // args.pp)
+    mesh = make_mesh(model_parallel=args.tp, device=device)
+    layout = Layout(data_group=mesh.get_group("data"),
+                    data_rank=mesh.get_local_rank("data"))
+    if args.tp > 1:
+        if family == "vit" and model.num_heads % args.tp:
+            # JAX's CLI drops to its reference attention here; the port
+            # keeps qkv and proj replicated (`parallel/tp.py::_spec_for`),
+            # so the attention runs as chosen, on all heads on every rank
+            log(f"--tp {args.tp} does not divide {model.num_heads} heads; "
+                "qkv and proj stay replicated and the attention "
+                f"({model.attn_impl}) runs all heads on every rank")
+        shard_params(model, mesh, VIT_TP_RULES if family == "vit"
+                     else RESNET_TP_RULES)
+        layout.tp, layout.tp_specs = model.tp, model.tp_specs
+        log(f"TP: Megatron {family} layout over model axis "
+            f"(tp={args.tp}, dp={n_proc // args.tp})")
+    if args.fsdp:
+        fsdp_shard_params(model, mesh, axis="data")
+        log("FSDP: params + optimizer state sharded over the data axis")
+    return mesh, layout
 
 
 def train_batches(tr: Training, epoch: int):
@@ -517,7 +651,7 @@ def train_batches(tr: Training, epoch: int):
         return tr.train_loader.epoch(epoch)
     return synthetic_batches(tr.batch_size, tr.args.input_size,
                              tr.args.num_classes, tr.steps_per_epoch,
-                             seed=epoch)
+                             seed=epoch + tr.proc_id * 7919)
 
 
 def _validate(tr: Training):
@@ -528,11 +662,12 @@ def _validate(tr: Training):
     density_rows = None
     batches = (tr.val_loader.epoch(0) if tr.val_loader is not None
                else synthetic_batches(tr.batch_size, tr.args.input_size,
-                                      tr.args.num_classes, 2, seed=10_000))
+                                      tr.args.num_classes, 2,
+                                      seed=10_000 + tr.proc_id * 7919))
     for images, labels in batches:
         images, labels, w = _pad_val_batch(images, labels, tr.batch_size)
         x, y = tr.to_device(images, labels)
-        s = tr.eval_step(x, y, torch.from_numpy(w).to(tr.device))
+        s = tr.eval_step(x, y, tr.place(torch.from_numpy(w)))
         bsz = float(s["n_valid"])
         top1 += float(s["top1"]) * bsz
         top5 += float(s["top5"]) * bsz
@@ -554,18 +689,26 @@ def main(argv=None):
     from laudnet_tpu_torch.utils.logging_utils import Logger
     from laudnet_tpu_torch.utils.metrics import AverageMeter
 
+    from laudnet_tpu_torch.parallel import initialize_distributed
+
     args = parse_args(argv)
-    _refuse_later_slices(args)  # before anything is written
+    _check_flags(args)  # before anything is written
+    # before any device use (joins nothing without --dist_*)
+    initialize_distributed(args.dist_coordinator, args.dist_num_processes,
+                           args.dist_process_id, device=args.device)
+    writer = not dist.is_initialized() or dist.get_rank() == 0
     os.makedirs(args.train_url, exist_ok=True)
-    log = Logger(os.path.join(args.train_url, "train.log"))
+    if writer:
+        log = Logger(os.path.join(args.train_url, "train.log"))
+    else:  # one writer per shared train_url; the other ranks stay quiet
+        log = lambda *a, **k: None
     tr = build_training(args, log)
     log(f"device: {tr.device}")
     state, epochs, steps_per_epoch = tr.state, tr.epochs, tr.steps_per_epoch
 
     if args.evaluate_from:
-        # evaluation only (reference `main.py:304-307,435-436`)
-        load_for_evaluation(tr.model, arch_family(args.arch),
-                            args.evaluate_from)
+        # evaluation only (reference `main.py:304-307,435-436`); the
+        # weights were loaded before the model was laid out
         top1, top5, act, gflops, _ = _validate(tr)
         log(f"evaluate: top1 {top1:.3f} top5 {top5:.3f} "
             f"act_rate {act:.3f} GFLOPs {gflops:.3f}")
@@ -577,7 +720,7 @@ def main(argv=None):
         log(f"auto-resumed from step {state.step}")
 
     csv_path = os.path.join(args.train_url, "log.txt")
-    if not os.path.exists(csv_path):
+    if writer and not os.path.exists(csv_path):
         with open(csv_path, "w", newline="") as f:
             csv.writer(f).writerow(CSV_HEADER)
 
@@ -627,13 +770,15 @@ def main(argv=None):
         is_best = val_top1 > best_top1
         if is_best:
             best_top1 = val_top1
-        np.savetxt(os.path.join(args.train_url, "all_density_latest.txt"),
-                   density_rows)
-        with open(csv_path, "a", newline="") as f:
-            csv.writer(f).writerow(
-                [epoch, meters["top1"].avg, meters["loss"].avg, val_top1,
-                 val_top5, act, gflops, m.get("lr"), m.get("temperature")])
-        if is_best:
+        if writer:
+            np.savetxt(os.path.join(args.train_url,
+                                    "all_density_latest.txt"), density_rows)
+            with open(csv_path, "a", newline="") as f:
+                csv.writer(f).writerow(
+                    [epoch, meters["top1"].avg, meters["loss"].avg,
+                     val_top1, val_top5, act, gflops, m.get("lr"),
+                     m.get("temperature")])
+        if is_best and writer:
             np.savetxt(os.path.join(args.train_url, "all_density_best.txt"),
                        density_rows)
             with open(best_path, "w") as f:

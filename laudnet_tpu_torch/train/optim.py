@@ -55,6 +55,17 @@ def _groups(model: nn.Module, weight_decay, backbone_lr_mult, masker_lr_mult,
             for (masker, decayed), params in sorted(buckets.items())]
 
 
+def _foreach(model: nn.Module):
+    """None (PyTorch's choice), or False for a model whose parameters mix
+    FSDP's sharded DTensors with plain tensors (`parallel/fsdp.py` leaves
+    the small ones plain): the multi-tensor kernels refuse such a mix on
+    the torch 2.11 of the H100 machine. Both compute the same update."""
+    from torch.distributed.tensor import DTensor
+
+    kinds = {isinstance(p, DTensor) for p in model.parameters()}
+    return False if len(kinds) > 1 else None
+
+
 def make_sgd(model: nn.Module, *, momentum=0.9, nesterov=True,
              weight_decay=5e-5, backbone_lr_mult=1.0, masker_lr_mult=1.0,
              decay_weights_only=False) -> torch.optim.SGD:
@@ -65,7 +76,8 @@ def make_sgd(model: nn.Module, *, momentum=0.9, nesterov=True,
     return torch.optim.SGD(
         _groups(model, weight_decay, backbone_lr_mult, masker_lr_mult,
                 decay_weights_only),
-        lr=0.0, momentum=momentum, nesterov=nesterov)
+        lr=0.0, momentum=momentum, nesterov=nesterov,
+        foreach=_foreach(model))
 
 
 def make_rmsprop(model: nn.Module, *, alpha=0.9, momentum=0.9,
@@ -78,7 +90,8 @@ def make_rmsprop(model: nn.Module, *, alpha=0.9, momentum=0.9,
     decay folded into the gradient."""
     return torch.optim.RMSprop(
         _groups(model, weight_decay, backbone_lr_mult, masker_lr_mult),
-        lr=0.0, alpha=alpha, eps=eps, momentum=momentum, centered=False)
+        lr=0.0, alpha=alpha, eps=eps, momentum=momentum, centered=False,
+        foreach=_foreach(model))
 
 
 def set_learning_rate(optimizer: torch.optim.Optimizer, lr: float) -> None:

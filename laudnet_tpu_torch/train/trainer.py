@@ -8,6 +8,13 @@ Gumbel straight-through gates, the composite loss ``lambda_act * sparsity
 and optimizer are updated in place; the step count lives in `TrainState`.
 The metrics stay on the device (lr and temperature are host floats): the
 caller decides when to read them.
+
+Under data parallelism (a ``layout``, `parallel/state.py`) each rank runs
+its slice of the global batch, and the step computes what the JAX
+package's single program over the sharded batch computes: the student's
+batch statistics (gate densities, BatchNorm) are means over the global
+batch (`ops/batch_stats.py`), the gradients and the logged losses and
+accuracies are averaged over the 'data' group.
 """
 
 from __future__ import annotations
@@ -16,9 +23,11 @@ import dataclasses
 from typing import Any, Callable, Optional
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from laudnet_tpu_torch.device import full_f32_convolutions
+from laudnet_tpu_torch.ops.batch_stats import global_batch
 from laudnet_tpu_torch.ops.gating import GumbelNoise
 from laudnet_tpu_torch.train import losses, schedules
 from laudnet_tpu_torch.train.optim import set_learning_rate
@@ -56,6 +65,9 @@ class TrainState:
     step: int
     model: nn.Module
     optimizer: torch.optim.Optimizer
+    # the run's layout over its ranks (`parallel/state.py::Layout`); None
+    # for one process
+    layout: Any = None
 
 
 def teacher_logits_fn(teacher: nn.Module, images: torch.Tensor):
@@ -116,13 +128,17 @@ def step_seed(seed: int, step: int) -> int:
 
 def make_train_step(model: nn.Module, teacher: nn.Module,
                     optimizer: torch.optim.Optimizer, cfg: TrainConfig, *,
-                    seed: int = 0, noise=None) -> Callable:
+                    seed: int = 0, noise=None, forward=None,
+                    layout=None) -> Callable:
     """Builds ``train_step(state, images, labels) -> metrics``. The teacher
     is frozen and runs at eval. Gumbel noise comes from a `GumbelNoise` on
     the model's device, re-seeded every step from (seed, step); a given
     ``noise`` source is used as it is instead. An f32 model (no
     ``compute_dtype``) takes the whole step, backward included, with
-    cuDNN's TF32 off (`device.full_f32_convolutions`)."""
+    cuDNN's TF32 off (`device.full_f32_convolutions`). ``forward(images,
+    temperature, step)`` replaces the student's forward (the pipelined
+    one, `parallel/pp_train.py`); ``layout`` makes the step data-parallel
+    (module docstring)."""
     own_noise: Optional[GumbelNoise] = None
     if noise is None:
         device = next(model.parameters()).device
@@ -152,7 +168,9 @@ def make_train_step(model: nn.Module, teacher: nn.Module,
             own_noise.reseed(step_seed(seed, step))
 
         teacher_logits = teacher_logits_fn(teacher, images)
-        out = model(images, temp, training=True, noise=noise)
+        with global_batch(None if layout is None else layout.data_group):
+            out = (model(images, temp, training=True, noise=noise)
+                   if forward is None else forward(images, temp, step))
         loss_flops = compute_sparsity_loss(cfg, epoch, out)
         loss, parts = losses.total_train_loss(
             out.logits, teacher_logits, labels, loss_flops,
@@ -161,13 +179,15 @@ def make_train_step(model: nn.Module, teacher: nn.Module,
 
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        if layout is not None:
+            layout.sync_gradients(model)
         set_learning_rate(optimizer, lr)
         optimizer.step()
         state.step = step + 1
 
         with torch.no_grad():
             top1, top5 = topk_accuracy(out.logits, labels, topk=(1, 5))
-            return {
+            metrics = {
                 "loss": loss.detach(),
                 "loss_cls": parts["loss_cls"].detach(),
                 "loss_kd": parts["loss_kd"].detach(),
@@ -179,16 +199,26 @@ def make_train_step(model: nn.Module, teacher: nn.Module,
                 "top1": top1,
                 "top5": top5,
             }
+            if layout is None:
+                return metrics
+            return layout.mean_metrics(metrics, ("loss", "loss_cls",
+                                                 "loss_kd", "top1", "top5"))
 
     return train_step
 
 
-def make_eval_step(model: nn.Module, cfg: TrainConfig) -> Callable:
-    """Eval forward at the final temperature (deterministic gates)."""
+def make_eval_step(model: nn.Module, cfg: TrainConfig, *, forward=None,
+                   layout=None) -> Callable:
+    """Eval forward at the final temperature (deterministic gates);
+    ``forward(images, temperature)`` replaces the model's. With a
+    ``layout`` the densities are the global batch's and top-1 / top-5 are
+    weighted over the 'data' group, ``n_valid`` the global count."""
 
     @torch.no_grad()
     def eval_step(images, labels, weights=None):
-        out = model(images, cfg.t_last, training=False)
+        with global_batch(None if layout is None else layout.data_group):
+            out = (model(images, cfg.t_last, training=False)
+                   if forward is None else forward(images, cfg.t_last))
         # ``weights``: 0/1 valid mask of a wrap-padded final batch; it
         # keeps top1/top5 exact. The densities are per-block batch means
         # and stay plain means.
@@ -197,6 +227,10 @@ def make_eval_step(model: nn.Module, cfg: TrainConfig) -> Callable:
         n_valid = (torch.tensor(float(labels.shape[0]),
                                 device=out.logits.device)
                    if weights is None else weights.sum().float())
+        if layout is not None and layout.data_size > 1:
+            sums = torch.stack([top1 * n_valid, top5 * n_valid, n_valid])
+            dist.all_reduce(sums, group=layout.data_group)
+            top1, top5, n_valid = sums[0] / sums[2], sums[1] / sums[2], sums[2]
         stats = {"top1": top1, "top5": top5, "n_valid": n_valid,
                  "act_rate": out.flops_perc.mean(), "flops": out.flops}
         # the density breakdown: per stage s3/s2/s1/channel for the CNNs,

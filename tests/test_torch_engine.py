@@ -246,7 +246,11 @@ def test_engine_prices_b4_in_the_graphs_dtype(vit, monkeypatch,
 
 
 def test_engine_refuses_a_mesh(vit):
-    with pytest.raises(NotImplementedError, match="parallel"):
+    """``mesh=`` takes a ``DeviceMesh`` (`parallel/mesh.py::make_mesh`; the
+    engine serving over one is `tests/test_torch_parallel.py::
+    test_serving_engine_mesh_serves_the_first_rank_s_weights`); anything
+    else is refused before a collective is tried."""
+    with pytest.raises(TypeError, match="DeviceMesh"):
         ServingEngine(vit[0], mesh=object())
 
 
