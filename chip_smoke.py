@@ -129,11 +129,24 @@ each raising on failure:
     dp and fsdp legs again on a dp2 x tp1 mesh, so the data group's
     exchanges run across the two ranks (the fsdp one where the probe's
     whole FSDP2 step passes); each leg held to one process on the whole
-    batch, PARALLEL_BOUNDS).
+    batch, PARALLEL_BOUNDS);
+16. the CNN detectors (`laudnet_tpu_torch/detection/`, no port kernel on
+    their path, which the phase asserts): an ImageNet-format LAUD-R101
+    file and a COCO-format directory written first; (a) the CLI's
+    ``train`` (``--amp``, 3 steps) then ``eval_info`` (2 batches) at
+    800x1344 bs2 from that file, RetinaNet on synthetic data and Mask
+    R-CNN on the directory (box and segm mAP); (b) full depth at 256x384,
+    f32, card against CPU: raw outputs, gate masks, ``detect``,
+    ``propose`` and ``roi_align`` bit for bit, the first training step on
+    the same Gumbel draws; (c) JAX's reduced-depth convergence recipe; (d)
+    RetinaNet, Faster and Mask R-CNN at 800x1344 bs2: eval forward bf16
+    and f32, detect with its kernels and NMS ms, the ``--amp`` step, kernel
+    ms, kernels, idle share, peak memory; the forwards and detects under
+    ``torch.cuda.set_sync_debug_mode("error")``.
 
 Prints a JSON line of the kernels, then as its last line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX. Nothing runs at
-a cut depth.
+a cut depth but phase 16's convergence run (JAX's recipe, depth 1-1-1-1).
 
 ``python3 chip_smoke.py kernels`` stops after phase 3 (a short run to check
 a changed kernel), ``python3 chip_smoke.py train`` runs phases 1-3 and 6,
@@ -143,7 +156,8 @@ a changed kernel), ``python3 chip_smoke.py train`` runs phases 1-3 and 6,
 `tools/probe_host.py`), ``python3 chip_smoke.py engine`` runs phases 1-2
 and 10, ``python3 chip_smoke.py regnet`` phases 1-2 and 11-13,
 ``python3 chip_smoke.py data`` phases 1-2 and 14, ``python3 chip_smoke.py
-parallel`` phases 1-2 and 15, and ``python3 chip_smoke.py profile`` prints, instead of
+parallel`` phases 1-2 and 15, ``python3 chip_smoke.py detection`` phases
+1-2 and 16, and ``python3 chip_smoke.py profile`` prints, instead of
 the phases, where a forward's device time goes (`torch.profiler`, by
 kernel) for the dense and snapped DeiT-S, W8A8 DeiT-S and T2T-ViT-19
 engines. None of
@@ -3497,6 +3511,483 @@ def phase_parallel(dev, card):
     print(f"parallel: phase 15 in {time.perf_counter() - t0:.1f} s [{card}]")
 
 
+# --- the CNN detectors (phase 16) ------------------------------------------------
+
+DET_CONFIGS = {
+    "retinanet": "configs/detection/retinanet_laud_r101_channel_2222_0x6.py",
+    "faster_rcnn": "configs/detection/faster_rcnn_laud_r101_channel_2222_0x8.py",
+    "mask_rcnn": "configs/detection/mask_rcnn_laud_r101_channel_2222_0x8.py",
+}
+DET_SIZE, DET_BATCH = (800, 1344), 2    # COCO's rectangular size, mmdet's bs
+DET_SMALL = (256, 384)                  # the card-against-CPU geometry
+# Card against CPU, f32 with TF32 off on both: the raw outputs of 100+
+# convolutions summed in other orders (cuDNN against oneDNN) differ by
+# ~1e-6 of their norm a layer; a gate that flips at an f32 tie changes its
+# block's output, which the MASK_AGREE_MIN bound lets through for 0.5 % of
+# the decisions. DET_F32_REL bounds ||card - cpu|| / ||cpu|| per output.
+DET_F32_REL = 1e-3
+# The first training step's loss parts, card against CPU on the same
+# weights and Gumbel draws: the RPN, sparsity and RetinaNet parts within
+# DET_F32_REL; the second-stage parts (RoI classification and box, mask)
+# sum over a proposal set that an objectness near-tie at the top-1000 or
+# NMS boundary may change by a box, so within DET_ROI_REL.
+DET_ROI_REL = 1e-2
+DET_CONVERGE = 0.7   # the reduced-depth run's last loss below this x first
+DET_CONVERGE_CFG = dict(num_classes=3, base_lr=0.005, lr_mult=0.5, epochs=1,
+                        steps_per_epoch=40, warmup_steps=10,
+                        lambda_sparse=0.1)
+
+
+def det_model_cfg(kind):
+    from laudnet_tpu_torch.utils.config import Config
+
+    return dict(Config.fromfile(DET_CONFIGS[kind])["model"])
+
+
+def write_imagenet_checkpoint(path, dev, seed=0, residual_scale=0.1):
+    """The ImageNet-format LAUD-ResNet-101 file the CLI's ``--init_from``
+    reads (the configs' own files are not in the repository): the port's
+    ``uni_resnet101`` in the configs' channel 2-2-2-2 mode, each block's
+    last BatchNorm scale at ``residual_scale`` (a trained ResNet keeps its
+    residual branches small, torchvision's ``zero_init_residual`` starts
+    them at 0; at 1 the residual stream of 33 random blocks grows to 5-10x
+    the stem's scale and the first RetinaNet loss reads ~870), its
+    BatchNorm running statistics the mean of three training-mode forwards'
+    batch statistics on synthetic detection images, written by
+    `convert/torch_export.py::save_pth_tar`."""
+    from laudnet_tpu_torch.convert import save_pth_tar, to_flax_variables
+    from laudnet_tpu_torch.detection.runner import synthetic_coco_batches
+    from laudnet_tpu_torch.models import uni_resnet101
+    from laudnet_tpu_torch.ops.gating import GumbelNoise
+    from laudnet_tpu_torch.ops.norm import BatchNorm
+
+    model = uni_resnet101(dyn_mode=("channel",) * 4,
+                          channel_dyn_granularity=(2,) * 4,
+                          channel_masker=("MLP",) * 4,
+                          channel_masker_layers=(2,) * 4, device=dev,
+                          generator=torch.Generator(dev).manual_seed(seed))
+    with torch.no_grad():
+        for blocks in model.stages():
+            for block in blocks:
+                block.bn3.weight.fill_(residual_scale)
+    norms = [m for m in model.modules() if isinstance(m, BatchNorm)]
+    noise = GumbelNoise.seeded(seed, dev)
+    with torch.no_grad():
+        for k, batch in enumerate(synthetic_coco_batches(
+                DET_BATCH, DET_SIZE, 3, 3, seed=seed)):
+            for m in norms:  # running statistics = the mean of the batches'
+                m.momentum = k / (k + 1)
+            model(torch.from_numpy(batch[0]).to(dev), 0.1, training=True,
+                  noise=noise)
+    for m in norms:
+        m.momentum = 0.9
+    save_pth_tar(to_flax_variables(model), path)
+    return path
+
+
+def write_coco_dir(root, n=8, seed=0):
+    """A flat-layout COCO directory: ``n`` JPEGs of 400-640 px with 1-4
+    objects of 3 categories, half with polygon and half with RLE masks,
+    under ``images/``, the same annotations as ``train.json`` and
+    ``val.json``."""
+    from PIL import Image
+
+    def rle(mask):
+        counts, run, val = [], 0, 0
+        for v in mask.T.reshape(-1):
+            if v == val:
+                run += 1
+            else:
+                counts.append(run)
+                run, val = 1, 1 - val
+        counts.append(run)
+        return counts
+
+    os.makedirs(os.path.join(root, "images"))
+    rng = np.random.default_rng(seed)
+    images, anns = [], []
+    for i in range(n):
+        h, w = int(rng.integers(400, 520)), int(rng.integers(500, 640))
+        img = (rng.random((h, w, 3)) * 90).astype(np.uint8)
+        for m in range(1 + i % 4):
+            bw, bh = int(rng.integers(60, w // 2)), int(rng.integers(60, h // 2))
+            x0, y0 = int(rng.integers(0, w - bw)), int(rng.integers(0, h - bh))
+            img[y0:y0 + bh, x0:x0 + bw, m % 3] = 220
+            mask = np.zeros((h, w), np.uint8)
+            mask[y0:y0 + bh, x0:x0 + bw] = 1
+            seg = ([[x0, y0, x0 + bw, y0, x0 + bw, y0 + bh, x0, y0 + bh]]
+                   if (i + m) % 2 else dict(size=[h, w], counts=rle(mask)))
+            anns.append(dict(id=len(anns) + 1, image_id=i,
+                             category_id=(1, 2, 3)[m % 3],
+                             bbox=[x0, y0, bw, bh], area=bw * bh, iscrowd=0,
+                             segmentation=seg))
+        Image.fromarray(img).save(os.path.join(root, "images", f"{i}.jpg"),
+                                  quality=90)
+        images.append(dict(id=i, file_name=f"{i}.jpg", height=h, width=w))
+    ann = dict(images=images, annotations=anns,
+               categories=[dict(id=c, name=f"c{c}") for c in (1, 2, 3)])
+    for split in ("train", "val"):
+        with open(os.path.join(root, f"{split}.json"), "w") as f:
+            json.dump(ann, f)
+    return root
+
+
+def det_cli_runs(tmp, ckpt, coco, card):
+    """(a) ``train`` then ``eval_info`` through the CLI at full width."""
+    from laudnet_tpu_torch.detection import cli
+
+    size = ["--image_size", f"{DET_SIZE[0]},{DET_SIZE[1]}", "--batch_size",
+            str(DET_BATCH)]
+    for kind, data in (("retinanet", []), ("mask_rcnn", ["--data_dir", coco])):
+        work = os.path.join(tmp, kind)
+        t = time.perf_counter()
+        history = cli.main(["train", DET_CONFIGS[kind], "--work_dir", work,
+                            "--amp", "--init_from", ckpt, "--epochs", "1",
+                            "--steps_per_epoch", "3"] + size + data)
+        train_s = time.perf_counter() - t
+        bad = [(i, k) for i, m in enumerate(history) for k, v in m.items()
+               if k.startswith("loss") and not math.isfinite(v)]
+        if len(history) != 2 or bad:
+            raise AssertionError(f"detection CLI {kind}: {len(history)} "
+                                 f"logged steps, losses not finite: {bad}")
+        t = time.perf_counter()
+        res = cli.main(["eval_info", DET_CONFIGS[kind], "--work_dir", work,
+                        "--eval_steps", "2"] + size + data)
+        eval_s = time.perf_counter() - t
+        keys = ("mAP",) + (("segm_mAP",) if kind == "mask_rcnn" else ())
+        if not (all(0.0 <= res[k] <= 1.0 for k in keys)
+                and 0.0 < res["mean_flops_rate"] <= 1.0
+                and res["n_images"] == 2 * DET_BATCH):
+            raise AssertionError(f"detection CLI eval_info {kind}: {res}")
+        print(f"detection CLI {kind} (LAUD-R101 channel 2-2-2-2, "
+              f"{DET_SIZE[0]}x{DET_SIZE[1]} bs{DET_BATCH}): train --amp 3 "
+              f"steps in {train_s:.1f} s, losses "
+              + ", ".join(f"{k} {v:.4f}" for k, v in history[-1].items()
+                          if k.startswith("loss"))
+              + f"; eval_info 2 batches in {eval_s:.1f} s: "
+              + ", ".join(f"{k} {res[k]:.4f}" for k in keys
+                          + ("mean_flops_rate",))
+              + f", mean GFLOPs {res['mean_flops'] / 1e9:.2f} [{card}]")
+
+
+class RecordingNoise:
+    """`GumbelNoise` that keeps every draw (as numpy) for a replay."""
+
+    def __init__(self, seed):
+        from laudnet_tpu_torch.ops.gating import GumbelNoise
+
+        self.noise, self.arrays = GumbelNoise.seeded(seed), []
+
+    def gumbel(self, shape, dtype=torch.float32, device=None):
+        g = self.noise.gumbel(shape, dtype)
+        self.arrays.append(g.numpy().copy())
+        return g if device is None else g.to(device)
+
+
+def gate_masks(model, run):
+    """``run()``'s output and every gating head's mask, in call order."""
+    from laudnet_tpu_torch.models.maskers import (ChannelMaskerConvLinear,
+                                                  ChannelMaskerMLP,
+                                                  SpatialMasker)
+
+    masks, hooks = [], []
+    for m in model.modules():
+        if isinstance(m, (ChannelMaskerMLP, ChannelMaskerConvLinear,
+                          SpatialMasker)):
+            hooks.append(m.register_forward_hook(
+                lambda mod, args, out: masks.append(out[0].detach().cpu())))
+    try:
+        return run(), masks
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+def det_rel(got, ref):
+    got, ref = got.detach().double().cpu(), ref.detach().double().cpu()
+    return ((got - ref).norm() / ref.norm().clamp_min(1e-30)).item()
+
+
+def det_same(tag, got, ref):
+    """Bit-for-bit equality of two dicts (or tuples) of tensors."""
+    items = got.items() if isinstance(got, dict) else enumerate(got)
+    for k, v in items:
+        if not torch.equal(v.cpu(), ref[k].cpu()):
+            raise AssertionError(f"detection card vs CPU: {tag} {k} differs")
+
+
+def det_card_vs_cpu(dev, ckpt, card):
+    """(b) Full depth at DET_SMALL, f32, the same weights on both."""
+    from laudnet_tpu_torch.detection.runner import (
+        DetTrainConfig, batch_to_device, build_detector,
+        load_backbone_checkpoint, make_detection_sgd,
+        make_detector_train_step, synthetic_coco_batches)
+    from laudnet_tpu_torch.detection.two_stage import (TWO_STAGE_STRIDES,
+                                                       roi_align)
+    from laudnet_tpu_torch.device import full_f32_convolutions
+    from laudnet_tpu_torch.ops.gating import ReplayNoise
+    from laudnet_tpu_torch.train.trainer import TrainState
+
+    batch = next(synthetic_coco_batches(DET_BATCH, DET_SMALL, 3, 1, seed=7,
+                                        max_gt=8, with_masks=True))
+    for kind in ("retinanet", "mask_rcnn"):
+        cpu, _ = build_detector(det_model_cfg(kind), device="cpu",
+                                generator=torch.Generator().manual_seed(3))
+        load_backbone_checkpoint(cpu, ckpt)
+        gpu, _ = build_detector(det_model_cfg(kind), device=dev)
+        gpu.load_state_dict(cpu.state_dict())
+        x = torch.from_numpy(batch[0])
+        with torch.no_grad():
+            ref, ref_masks = gate_masks(cpu, lambda: cpu(x))
+            out, masks = gate_masks(gpu, lambda: gpu(x.to(dev)))
+        agree = (torch.cat([a.flatten() for a in masks])
+                 == torch.cat([b.flatten() for b in ref_masks])).float()
+        errs = {}
+        if kind == "retinanet":
+            for k in ("cls_logits", "box_deltas"):
+                errs[k] = det_rel(out[k], ref[k])
+            det = type(cpu).detect(ref, DET_SMALL)
+            det_same("RetinaNet.detect", type(gpu).detect(
+                {k: (v.to(dev) if torch.is_tensor(v) else v)
+                 for k, v in ref.items()}, DET_SMALL), det)
+        else:
+            for k in ("rpn_obj", "rpn_reg"):
+                errs[k] = det_rel(out[k], ref[k])
+            # the second stage on the CPU's proposals, TF32 off as in the
+            # model's forward
+            with torch.no_grad(), full_f32_convolutions():
+                feats, _, _ = gpu.backbone(x.to(dev))
+                pyramid = gpu.neck(feats)
+                second = gpu.roi_heads(pyramid, ref["proposals"].to(dev),
+                                       *DET_SMALL)
+                for k, v in zip(("cls_logits", "box_deltas", "mask_logits"),
+                                second):
+                    errs[k] = det_rel(v, ref[k])
+                anchors = ref["anchors"]
+                det_same("FasterRCNN.propose", gpu.propose(
+                    ref["rpn_obj"].to(dev), ref["rpn_reg"].to(dev),
+                    anchors.to(dev), *DET_SMALL), cpu.propose(
+                    ref["rpn_obj"], ref["rpn_reg"], anchors, *DET_SMALL))
+                cpu_pyr = [p.cpu() for p in pyramid[:4]]
+                for size in (7, 14):
+                    det_same(f"roi_align {size}", [roi_align(
+                        pyramid[:4], ref["proposals"].to(dev),
+                        TWO_STAGE_STRIDES[:4], size)], [roi_align(
+                            cpu_pyr, ref["proposals"], TWO_STAGE_STRIDES[:4],
+                            size)])
+            det = type(cpu).detect(ref)
+            det_same("FasterRCNN.detect", type(gpu).detect(
+                {k: (v.to(dev) if torch.is_tensor(v) else v)
+                 for k, v in ref.items()}), det)
+        worst = max(errs.values())
+        print(f"detection card vs CPU {kind} (R101 {DET_SMALL[0]}x"
+              f"{DET_SMALL[1]} f32): gate masks {agree.mean().item():.6f} "
+              f"equal ({agree.numel()}); rel err "
+              + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+              + f"; detect, propose and roi_align bit for bit [{card}]")
+        if agree.mean().item() < MASK_AGREE_MIN or worst > DET_F32_REL:
+            raise AssertionError(f"detection card vs CPU {kind}: masks "
+                                 f"{agree.mean().item()}, errors {errs}")
+
+        # the first f32 training step, the same Gumbel draws
+        cfg = DetTrainConfig(num_classes=80, epochs=1, steps_per_epoch=2,
+                             warmup_steps=1, with_masks=kind == "mask_rcnn")
+        parts = []
+        recording = RecordingNoise(5)
+        data = batch if cfg.with_masks else batch[:4]
+        for model, device, noise in ((cpu, "cpu", recording),
+                                     (gpu, dev, None)):
+            opt = make_detection_sgd(model)
+            step = make_detector_train_step(
+                model, opt, cfg,
+                "retinanet" if kind == "retinanet" else "faster_rcnn",
+                noise=noise or ReplayNoise(recording.arrays))
+            m = step(TrainState(step=0, model=model, optimizer=opt),
+                     *batch_to_device(data, device))
+            parts.append({k: float(v) for k, v in m.items()})
+        errs = {k: abs(parts[1][k] - parts[0][k]) / max(abs(parts[0][k]),
+                                                        1e-12)
+                for k in parts[0] if k.startswith("loss")}
+        print(f"detection card vs CPU {kind}: first f32 train step, loss "
+              "parts rel err " + ", ".join(f"{k} {v:.3g}"
+                                           for k, v in errs.items())
+              + f" (card loss {parts[1]['loss']:.6f}) [{card}]")
+        for k, v in errs.items():
+            bound = (DET_ROI_REL if k in ("loss_cls", "loss_box", "loss_mask")
+                     and kind != "retinanet" else DET_F32_REL)
+            if not v <= bound:
+                raise AssertionError(f"detection train step card vs CPU "
+                                     f"{kind}: {k} {v} > {bound}")
+
+
+def det_converge(dev, card):
+    """(c) JAX's synthetic-COCO convergence recipe on the card: Faster
+    R-CNN at backbone depth (1, 1, 1, 1), 64 px, 40 steps."""
+    from laudnet_tpu_torch.detection import FasterRCNN
+    from laudnet_tpu_torch.detection.runner import (DetTrainConfig,
+                                                    train_detector)
+
+    model = FasterRCNN(num_classes=3, backbone_layers=(1, 1, 1, 1),
+                       dyn_mode=("channel",) * 4, num_proposals=16,
+                       sparsity_target=0.5, device=dev,
+                       generator=torch.Generator(dev).manual_seed(0))
+    t = time.perf_counter()
+    _, history = train_detector(model, DetTrainConfig(**DET_CONVERGE_CFG),
+                                kind="faster_rcnn", image_size=64,
+                                batch_size=2, log=lambda *a: None)
+    losses = [h["loss"] for h in history]
+    print(f"detection convergence (Faster R-CNN, depth 1-1-1-1, 64 px, 40 "
+          f"steps): logged losses {[round(v, 4) for v in losses]} in "
+          f"{time.perf_counter() - t:.1f} s [{card}]")
+    if not (math.isfinite(losses[-1]) and losses[-1] < DET_CONVERGE
+            * losses[0]):
+        raise AssertionError(f"detection convergence: {losses[0]} -> "
+                             f"{losses[-1]}, not below {DET_CONVERGE}x")
+
+
+def kernel_profile(fn, reps=2):
+    """Per call of ``fn``: kernel ms, kernels run, and wall ms (host clock
+    over the profiled calls, synchronised)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3 / reps
+    events = [e for e in prof.key_averages()
+              if e.device_type.name == "CUDA"]
+    busy = sum(e.self_device_time_total for e in events) / reps / 1e3
+    kernels = sum(e.count for e in events) / reps
+    return busy, kernels, wall
+
+
+def det_numbers(dev, ckpt, card):
+    """(d) At DET_SIZE and DET_BATCH, per detector: the eval forward in bf16
+    and f32, detect with its kernels and the NMS share, the --amp train
+    step, kernel time, kernel count and idle share, peak memory. The
+    forwards and detects run once more under
+    ``torch.cuda.set_sync_debug_mode("error")``."""
+    from laudnet_tpu_torch.detection.retinanet import nms
+    from laudnet_tpu_torch.detection.runner import (
+        DetTrainConfig, batch_to_device, build_detector,
+        load_backbone_checkpoint, make_detection_sgd,
+        make_detector_train_step, synthetic_coco_batches)
+    from laudnet_tpu_torch.train.trainer import TrainState
+
+    batch = next(synthetic_coco_batches(DET_BATCH, DET_SIZE, 80, 1, seed=9,
+                                        max_gt=32, with_masks=True))
+    for kind in ("retinanet", "faster_rcnn", "mask_rcnn"):
+        cfg = det_model_cfg(kind)
+        f32, key = build_detector(cfg, device=dev,
+                                  generator=torch.Generator(dev).manual_seed(4))
+        load_backbone_checkpoint(f32, ckpt)
+        bf16, _ = build_detector(dict(cfg, amp=True), device=dev)
+        bf16.load_state_dict(f32.state_dict())
+        data = batch_to_device(batch if kind == "mask_rcnn" else batch[:4],
+                               dev)
+        x = data[0]
+        if key == "retinanet":
+            detect = lambda out: type(f32).detect(out, DET_SIZE)
+        else:
+            detect = lambda out: type(f32).detect(out)
+        row = {}
+        with torch.no_grad():
+            for name, model in (("bf16", bf16), ("f32", f32)):
+                fwd = lambda: model(x)
+                row[f"eval_{name}_ms"] = time_ms(fwd, reps=5, warmup=2)
+                out = fwd()
+                torch.cuda.synchronize()
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    detect(fwd())
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+            busy, row["eval_bf16_kernels"], wall = kernel_profile(
+                lambda: bf16(x))
+            row["eval_bf16_kernel_ms"] = busy
+            row["eval_bf16_idle"] = max(0.0, 1 - busy / wall)
+            row["detect_ms"] = time_ms(lambda: detect(out), reps=5, warmup=1)
+            _, row["detect_kernels"], _ = kernel_profile(lambda: detect(out))
+            # the detect's NMS alone, on inputs of its shape
+            if key == "retinanet":
+                n, thr, keep = 1000, 0.5, 100
+            else:
+                n, thr, keep = out["proposals"].shape[1], 0.5, 100
+            g = torch.Generator(dev).manual_seed(1)
+            xy = torch.rand(DET_BATCH, n, 2, device=dev, generator=g) * 700
+            boxes = torch.cat([xy, xy + torch.rand(
+                DET_BATCH, n, 2, device=dev, generator=g) * 200 + 8], -1)
+            scores = torch.rand(DET_BATCH, n, device=dev, generator=g)
+            row["nms_ms"] = time_ms(lambda: nms(boxes, scores, thr, keep),
+                                    reps=5, warmup=1)
+            if key != "retinanet":  # the proposals' NMS inside the forward
+                row["propose_nms_ms"] = time_ms(
+                    lambda: nms(torch.cat([boxes] * 4, 1)[:, :1000],
+                                torch.cat([scores] * 4, 1)[:, :1000], 0.7,
+                                256), reps=5, warmup=1)
+
+        opt = make_detection_sgd(bf16)
+        step = make_detector_train_step(
+            # learning rate 0: the step (gradients, update and all) runs
+            # eight times on one batch and computes the same values each
+            # time; at a live rate random heads drift to NaN on a repeated
+            # batch within eight steps
+            bf16, opt, DetTrainConfig(num_classes=80, base_lr=0.0, epochs=1,
+                                      steps_per_epoch=100, warmup_steps=1,
+                                      with_masks=kind == "mask_rcnn"),
+            key, seed=1)
+        state = TrainState(step=0, model=bf16, optimizer=opt)
+        train = lambda: step(state, *data)
+        for _ in range(2):
+            m = train()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(4):
+            t = time.perf_counter()
+            m = train()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+        row["train_ms"] = statistics.median(times)
+        row["train_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        busy, row["train_kernels"], wall = kernel_profile(train)
+        row["train_kernel_ms"] = busy
+        row["train_idle"] = max(0.0, 1 - busy / wall)
+        if not all(math.isfinite(float(v)) for k, v in m.items()
+                   if k.startswith("loss")):
+            raise AssertionError(f"detection {kind} --amp step: {m}")
+        print(f"detection numbers {kind} (LAUD-R101 channel 2-2-2-2, "
+              f"{DET_SIZE[0]}x{DET_SIZE[1]} bs{DET_BATCH}): "
+              + ", ".join(f"{k} {v:.4f}" if isinstance(v, float)
+                          else f"{k} {v}" for k, v in row.items())
+              + f" [{card}]")
+        del f32, bf16, opt, state, step
+        torch.cuda.empty_cache()
+
+
+def phase_detection(dev, card):
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = write_imagenet_checkpoint(os.path.join(tmp, "laud_r101.pth.tar"),
+                                         dev)
+        coco = write_coco_dir(os.path.join(tmp, "coco"))
+        print(f"detection set-up: ImageNet LAUD-R101 file and COCO directory "
+              f"in {time.perf_counter() - t0:.1f} s")
+        # the main path launches none of the port's kernels (none is on it)
+        _, launched = counted(lambda: det_cli_runs(tmp, ckpt, coco, card))
+        if any(launched.values()):
+            raise AssertionError(f"detection launched port kernels: "
+                                 f"{launched}; name them in the kernel table")
+        det_card_vs_cpu(dev, ckpt, card)
+        det_converge(dev, card)
+        det_numbers(dev, ckpt, card)
+    print(f"detection: phase 16 in {time.perf_counter() - t0:.1f} s [{card}]")
+
+
 REPLACES = {
     "fused_vit_block": "laudnet_tpu/ops/pallas/vit_block.py:303",
     "fused_vit_segment": "laudnet_tpu/ops/pallas/vit_block.py:472",
@@ -3546,6 +4037,11 @@ def main():
         print(f"parallel phase passed in {time.perf_counter() - t0:.1f} s "
               f"[{card}]")
         return
+    if sys.argv[1:] == ["detection"]:
+        phase_detection(dev, card)
+        print(f"detection phase passed in {time.perf_counter() - t0:.1f} s "
+              f"[{card}]")
+        return
     if sys.argv[1:] == ["engine"]:
         phase_engine(dev, card)
         print(f"engine phase passed in {time.perf_counter() - t0:.1f} s "
@@ -3591,6 +4087,8 @@ def main():
     timed("real input and reference checkpoints")
     phase_parallel(dev, card)
     timed("parallel")
+    phase_detection(dev, card)
+    timed("detection")
     launches = MAIN_PATH_LAUNCHES
     kernels = []
     for name, rows in results.items():

@@ -16,10 +16,13 @@ import pytest
 # Worker seconds of the suite's slowest files on six CPU workers, slowest
 # first: test_train_cli.py 944, test_detr.py 527, test_engine.py 455,
 # test_detection_train.py 326; then test_torch_parallel_cli.py 133, whose
-# spawned ranks also hold CPU cores beside its worker.
+# spawned ranks also hold CPU cores beside its worker,
+# test_torch_detection_train.py 125 and test_torch_detection.py 74.
 LONGEST_FIRST = ("tests/test_train_cli.py", "tests/test_detr.py",
                  "tests/test_engine.py", "tests/test_detection_train.py",
-                 "tests/test_torch_parallel_cli.py")
+                 "tests/test_torch_parallel_cli.py",
+                 "tests/test_torch_detection_train.py",
+                 "tests/test_torch_detection.py")
 _INTERNALS = ("schedule", "_assign_work_unit", "_reschedule", "_pending_of",
               "_split_scope", "_check_nodes_have_same_collection")
 

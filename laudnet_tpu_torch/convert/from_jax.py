@@ -9,6 +9,9 @@ parameter and BatchNorm statistic is set, or it raises. Conversions:
 * Dense ``kernel`` (in, out) -> Linear ``weight`` (out, in);
 * Conv ``kernel`` HWIO -> Conv2d ``weight`` OIHW (a grouped kernel
   (kh, kw, in/g, out) -> (out, in/g, kh, kw), the same transpose);
+* ConvTranspose ``kernel`` HWIO -> ConvTranspose2d ``weight`` IOHW with
+  the taps flipped in both spatial axes (flax's transposed convolution
+  does not flip its kernel, PyTorch's does);
 * LayerNorm and BatchNorm ``scale``/``bias`` -> ``weight``/``bias``;
 * ``batch_stats`` ``mean``/``var`` -> the buffers ``running_mean``/
   ``running_var`` (flax keeps the biased variance, and so does the port's
@@ -74,9 +77,12 @@ def _port_name(flax_path: str) -> tuple[str, str]:
     return path, leaf
 
 
-def _convert(arr: np.ndarray, kind: str) -> np.ndarray:
+def _convert(arr: np.ndarray, kind: str, transposed: bool = False
+             ) -> np.ndarray:
     if kind == "kernel" and arr.ndim == 2:
         return arr.T
+    if kind == "kernel" and arr.ndim == 4 and transposed:
+        return arr[::-1, ::-1].transpose(2, 3, 0, 1)  # HWIO -> IOHW
     if kind == "kernel" and arr.ndim == 4:
         return arr.transpose(3, 2, 0, 1)  # HWIO -> OIHW
     return arr
@@ -98,6 +104,8 @@ def load_flax_variables(model: nn.Module,
     ...}``, or a bare ``params`` tree for a model without BatchNorm) into
     ``model`` (in the model's dtype and device) and returns the model."""
     params_tree, stats_tree = _split_variables(variables_np)
+    transposed = {f"{name}.weight" for name, m in model.named_modules()
+                  if isinstance(m, nn.ConvTranspose2d)}
     targets = dict(model.named_parameters())
     targets.update((name, buf) for name, buf in model.named_buffers()
                    if name.rpartition(".")[2] in _STATS.values())
@@ -120,7 +128,8 @@ def load_flax_variables(model: nn.Module,
         target = targets[name]
         if arr.dtype.name == "bfloat16":  # ml_dtypes: torch cannot wrap it
             arr = arr.astype(np.float32)
-        value = np.ascontiguousarray(_convert(arr, kind))
+        value = np.ascontiguousarray(_convert(arr, kind,
+                                              name in transposed))
         if tuple(value.shape) != tuple(target.shape):
             raise ValueError(f"{path}: flax shape {arr.shape} -> "
                              f"{value.shape}, port {name} has "
@@ -144,7 +153,8 @@ def to_flax_tree(model: nn.Module, grads: bool = False) -> dict:
     """The model's parameters (``grads``: their ``.grad``; a parameter
     without one gives zeros) as a nested dict in the flax ``params`` layout
     with f32 numpy leaves: Linear ``weight`` (out, in) -> ``kernel``
-    (in, out), Conv2d OIHW -> HWIO, LayerNorm and BatchNorm ``weight`` -> ``scale``,
+    (in, out), Conv2d OIHW -> HWIO, ConvTranspose2d IOHW -> HWIO with the
+    taps flipped back, LayerNorm and BatchNorm ``weight`` -> ``scale``,
     ``blocks.{i}`` -> ``block_{i}``; the rest as it is."""
     kinds = {name: type(m) for name, m in model.named_modules()}
     tree: dict = {}
@@ -152,12 +162,16 @@ def to_flax_tree(model: nn.Module, grads: bool = False) -> dict:
         value = param.grad if grads else param
         if value is None:
             value = torch.zeros_like(param)
-        arr = value.detach().float().cpu().numpy()
+        # a copy: a CPU f32 tensor's .numpy() shares the parameter's memory
+        arr = value.detach().float().cpu().numpy().copy()
         module, _, leaf = name.rpartition(".")
         kind = kinds.get(module)
         if leaf == "weight" and kind is not None:
             if issubclass(kind, (nn.LayerNorm, BatchNorm)):
                 leaf = "scale"
+            elif issubclass(kind, nn.ConvTranspose2d):
+                leaf = "kernel"
+                arr = arr.transpose(2, 3, 0, 1)[::-1, ::-1]
             elif issubclass(kind, nn.Conv2d):
                 leaf, arr = "kernel", arr.transpose(2, 3, 1, 0)
             elif issubclass(kind, nn.Linear):
@@ -176,7 +190,7 @@ def to_flax_batch_stats(model: nn.Module) -> dict:
         module, _, leaf = name.rpartition(".")
         if leaf in back:
             _set_leaf(tree, module, back[leaf],
-                      buf.detach().float().cpu().numpy())
+                      buf.detach().float().cpu().numpy().copy())
     return tree
 
 

@@ -174,13 +174,6 @@ class LAUDBottleneck(nn.Module):
         self.conv_impl, self.compute_dtype = conv_impl, compute_dtype
         width = self.width = planes * group_width
         out_planes = self.out_planes = planes * EXPANSION
-        if isinstance(output_size, int):
-            self.out_h = self.out_w = output_size
-        else:
-            self.out_h, self.out_w = output_size
-        g = mask_spatial_granularity
-        self.mask_size = ((max(self.out_h // g, 1), max(self.out_w // g, 1))
-                          if dyn_mode != "layer" else (1, 1))
 
         self.masker_channel = self.masker_spatial = None
         if dyn_mode in ("channel", "both"):
@@ -195,7 +188,8 @@ class LAUDBottleneck(nn.Module):
                     reduction=reduction, **kw)
         if dyn_mode in ("spatial", "layer", "both"):
             self.masker_spatial = SpatialMasker(
-                inplanes, spatial_mask_channel_group, self.mask_size, **kw)
+                inplanes, spatial_mask_channel_group, 1, **kw)
+        self.set_output_size(output_size)
 
         self.conv1 = make_conv(conv_impl, inplanes, width, 1, **kw)
         self.bn1 = BatchNorm(width, **kw)
@@ -212,6 +206,21 @@ class LAUDBottleneck(nn.Module):
         # tensor parallelism (`parallel/tp.py::shard_params`): conv2 and
         # bn2 hold this rank's channels, conv3 its input channels
         self.tp = None
+
+    def set_output_size(self, output_size) -> None:
+        """Points the block at an output resolution (an int, or ``(h, w)``)
+        and sizes the spatial mask grid from it. No parameter depends on
+        it, so a detector backbone re-targets its blocks at each input
+        size, as the JAX module derives them from the traced shape."""
+        if isinstance(output_size, int):
+            self.out_h = self.out_w = output_size
+        else:
+            self.out_h, self.out_w = output_size
+        g = self.mask_spatial_granularity
+        self.mask_size = ((max(self.out_h // g, 1), max(self.out_w // g, 1))
+                          if self.dyn_mode != "layer" else (1, 1))
+        if self.masker_spatial is not None:
+            self.masker_spatial.mask_size = self.mask_size
 
     def sparse_eligible(self, training: bool) -> bool:
         """The gather/scatter path: eval only, spatial mode, stride 1, one
