@@ -142,11 +142,26 @@ each raising on failure:
     RetinaNet, Faster and Mask R-CNN at 800x1344 bs2: eval forward bf16
     and f32, detect with its kernels and NMS ms, the ``--amp`` step, kernel
     ms, kernels, idle share, peak memory; the forwards and detects under
-    ``torch.cuda.set_sync_debug_mode("error")``.
+    ``torch.cuda.set_sync_debug_mode("error")``;
+17. the DETR family (`detection/detr.py`, no port kernel on its path,
+    which the phase asserts), f32 as DETR runs: ImageNet-format LAUD-R101
+    files (channel and layer mode) and the COCO directory of phase 16's
+    helpers; (a) the CLI's ``train`` (3 steps) then ``eval_info`` (2
+    batches), DDQ-DETR channel 2-2-2-2 at 800x1344 bs2 on synthetic data
+    and Mask2Former layer at 1024x1024 bs2 on the directory; (b) full depth
+    at 256x384 / 256x256, card against CPU: raw outputs and the first
+    step's loss parts on the same draws within DETR_F32_REL,
+    ``detr_detect``, ``nms_keep_mask`` and the Hungarian assignment bit
+    for bit; (c) both forms at depth 1-1-1-1 on one repeated batch, the
+    loss falling below DETR_CONVERGE x its first; (d) both at full size:
+    eval forward, detect, the DDQ initialisation's NMS, a keep mask, the
+    Hungarian host copy, the train step, kernel ms, kernels, idle share,
+    peak memory, the kernels with the most device time; the forwards and
+    detects under ``torch.cuda.set_sync_debug_mode("error")``.
 
 Prints a JSON line of the kernels, then as its last line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX. Nothing runs at
-a cut depth but phase 16's convergence run (JAX's recipe, depth 1-1-1-1).
+a cut depth but the convergence runs of phases 16 and 17 (depth 1-1-1-1).
 
 ``python3 chip_smoke.py kernels`` stops after phase 3 (a short run to check
 a changed kernel), ``python3 chip_smoke.py train`` runs phases 1-3 and 6,
@@ -157,7 +172,8 @@ a changed kernel), ``python3 chip_smoke.py train`` runs phases 1-3 and 6,
 and 10, ``python3 chip_smoke.py regnet`` phases 1-2 and 11-13,
 ``python3 chip_smoke.py data`` phases 1-2 and 14, ``python3 chip_smoke.py
 parallel`` phases 1-2 and 15, ``python3 chip_smoke.py detection`` phases
-1-2 and 16, and ``python3 chip_smoke.py profile`` prints, instead of
+1-2 and 16, ``python3 chip_smoke.py detr`` phases 1-2 and 17, and
+``python3 chip_smoke.py profile`` prints, instead of
 the phases, where a forward's device time goes (`torch.profiler`, by
 kernel) for the dense and snapped DeiT-S, W8A8 DeiT-S and T2T-ViT-19
 engines. None of
@@ -3544,10 +3560,12 @@ def det_model_cfg(kind):
     return dict(Config.fromfile(DET_CONFIGS[kind])["model"])
 
 
-def write_imagenet_checkpoint(path, dev, seed=0, residual_scale=0.1):
+def write_imagenet_checkpoint(path, dev, seed=0, residual_scale=0.1,
+                              dyn_mode="channel"):
     """The ImageNet-format LAUD-ResNet-101 file the CLI's ``--init_from``
     reads (the configs' own files are not in the repository): the port's
-    ``uni_resnet101`` in the configs' channel 2-2-2-2 mode, each block's
+    ``uni_resnet101`` in the configs' channel 2-2-2-2 mode (or ``dyn_mode``
+    in every stage), each block's
     last BatchNorm scale at ``residual_scale`` (a trained ResNet keeps its
     residual branches small, torchvision's ``zero_init_residual`` starts
     them at 0; at 1 the residual stream of 33 random blocks grows to 5-10x
@@ -3561,15 +3579,18 @@ def write_imagenet_checkpoint(path, dev, seed=0, residual_scale=0.1):
     from laudnet_tpu_torch.ops.gating import GumbelNoise
     from laudnet_tpu_torch.ops.norm import BatchNorm
 
-    model = uni_resnet101(dyn_mode=("channel",) * 4,
+    model = uni_resnet101(dyn_mode=(dyn_mode,) * 4,
                           channel_dyn_granularity=(2,) * 4,
                           channel_masker=("MLP",) * 4,
                           channel_masker_layers=(2,) * 4, device=dev,
                           generator=torch.Generator(dev).manual_seed(seed))
     with torch.no_grad():
-        for blocks in model.stages():
+        for s, blocks in enumerate(model.stages()):
             for block in blocks:
                 block.bn3.weight.fill_(residual_scale)
+                if dyn_mode != "channel":  # its gate grid follows the input
+                    block.set_output_size(tuple(-(-n // 2 ** (s + 2))
+                                                for n in DET_SIZE))
     norms = [m for m in model.modules() if isinstance(m, BatchNorm)]
     noise = GumbelNoise.seeded(seed, dev)
     with torch.no_grad():
@@ -3988,6 +4009,413 @@ def phase_detection(dev, card):
     print(f"detection: phase 16 in {time.perf_counter() - t0:.1f} s [{card}]")
 
 
+# --- the DETR family (phase 17) --------------------------------------------------
+
+DETR_CONFIGS = {
+    "ddq": "configs/detection/ddq_detr_laud_r101_channel_2222_0x5.py",
+    "mask2former": "configs/detection/mask2former_laud_r101_layer_0x5.py",
+}
+# COCO's 800x1344 for DDQ-DETR; Mask2Former's LSJ crop of 1024x1024; mmdet's
+# 2 images a card for both
+DETR_SIZE = {"ddq": (800, 1344), "mask2former": (1024, 1024)}
+DETR_BATCH = 2
+DETR_MODE = {"ddq": "channel", "mask2former": "layer"}
+# the card-against-CPU geometry: DDQ needs num_queries (300) encoder tokens,
+# 256x384 gives 2,016; Mask2Former's four levels give 5,440 at 256x256
+DETR_SMALL = {"ddq": (256, 384), "mask2former": (256, 256)}
+# Card against CPU, f32 with TF32 off on both: the raw outputs after the
+# 101-layer backbone, three encoder and three decoder layers, ||card - cpu||
+# / ||cpu|| per output (the CNN detectors' DET_F32_REL); the first training
+# step's loss parts alike, on the same Gumbel, denoising and point draws
+DETR_F32_REL = 1e-3
+# (c): the reduced-depth run on one repeated batch, the mean of its last 3
+# losses below DETR_CONVERGE x its first. Mask2Former's loss is noisy (its
+# points are drawn anew each step): over six seeds on the CPU it read
+# 0.55-0.66 after 20 steps and 0.42-0.51 after 30 (DDQ 0.47 after 20)
+DETR_CONVERGE = 0.8
+DETR_CONVERGE_STEPS, DETR_CONVERGE_LR = 30, 3e-5
+
+
+def detr_model_cfg(form, **over):
+    from laudnet_tpu_torch.utils.config import Config
+
+    cfg = Config.fromfile(DETR_CONFIGS[form])
+    return dict(cfg["model"], **over), dict(cfg.get("train_cfg", {}))
+
+
+def detr_cli_runs(tmp, ckpts, coco, card):
+    """(a) ``train`` (3 steps, f32 as DETR runs) then ``eval_info`` (2
+    batches) through the CLI at full width: DDQ-DETR on synthetic data,
+    Mask2Former on the COCO directory (box and segm mAP)."""
+    from laudnet_tpu_torch.detection import cli
+
+    for form, data in (("ddq", []), ("mask2former", ["--data_dir", coco])):
+        h, w = DETR_SIZE[form]
+        size = ["--image_size", f"{h},{w}", "--batch_size", str(DETR_BATCH)]
+        work = os.path.join(tmp, form)
+        t = time.perf_counter()
+        history = cli.main(["train", DETR_CONFIGS[form], "--work_dir", work,
+                            "--init_from", ckpts[form], "--epochs", "1",
+                            "--steps_per_epoch", "3"] + size + data)
+        train_s = time.perf_counter() - t
+        bad = [(i, k) for i, m in enumerate(history) for k, v in m.items()
+               if k.startswith("loss") and not math.isfinite(v)]
+        want = ("loss_dn", "loss_dec_aux", "loss_enc_aux") if form == "ddq" \
+            else ("loss_mask", "loss_mask_aux")
+        if len(history) != 2 or bad or not all(k in history[-1]
+                                               for k in want):
+            raise AssertionError(f"DETR CLI {form}: {len(history)} logged "
+                                 f"steps, losses not finite: {bad}, "
+                                 f"{sorted(history[-1])}")
+        t = time.perf_counter()
+        res = cli.main(["eval_info", DETR_CONFIGS[form], "--work_dir", work,
+                        "--eval_steps", "2"] + size + data)
+        eval_s = time.perf_counter() - t
+        keys = ("mAP",) + (("segm_mAP",) if form == "mask2former" else ())
+        if not (all(0.0 <= res[k] <= 1.0 for k in keys)
+                and 0.0 < res["mean_flops_rate"] <= 1.0
+                and res["n_images"] == 2 * DETR_BATCH):
+            raise AssertionError(f"DETR CLI eval_info {form}: {res}")
+        print(f"DETR CLI {form} (LAUD-R101 {DETR_MODE[form]}, {h}x{w} "
+              f"bs{DETR_BATCH}, f32): train 3 steps in {train_s:.1f} s, "
+              + ", ".join(f"{k} {v:.4f}" for k, v in history[-1].items()
+                          if k.startswith("loss"))
+              + f"; eval_info 2 batches in {eval_s:.1f} s: "
+              + ", ".join(f"{k} {res[k]:.4f}" for k in keys
+                          + ("mean_flops_rate",))
+              + f", mean GFLOPs {res['mean_flops'] / 1e9:.2f} [{card}]")
+
+
+class RecordingDraws:
+    """`UniformDraws` on the CPU that keeps every draw for a replay."""
+
+    def __init__(self, seed):
+        from laudnet_tpu_torch.detection.detr import UniformDraws
+
+        self.draws, self.arrays = UniformDraws.seeded(seed), []
+
+    def uniform(self, shape, device=None):
+        u = self.draws.uniform(shape)
+        self.arrays.append(u.numpy().copy())
+        return u if device is None else u.to(device)
+
+    def randint(self, shape, low, high, device=None):
+        r = self.draws.randint(shape, low, high)
+        self.arrays.append(r.numpy().copy())
+        return r if device is None else r.to(device)
+
+
+def detr_rel_errs(out, ref):
+    """||card - cpu|| / ||cpu|| of every float output, aux ones included."""
+    errs = {}
+    for k, v in ref.items():
+        if torch.is_tensor(v) and v.is_floating_point():
+            errs[k] = det_rel(out[k], v)
+        elif isinstance(v, tuple):
+            for i, aux in enumerate(v):
+                for kk, vv in aux.items():
+                    errs[f"{k}{i}.{kk}"] = det_rel(out[k][i][kk], vv)
+    return errs
+
+
+def detr_card_vs_cpu(dev, ckpts, card):
+    """(b) Full depth at DETR_SMALL, f32, the same weights on both: raw
+    outputs and the first step's loss parts within DETR_F32_REL; from the
+    CPU's outputs, ``detr_detect``, ``nms_keep_mask`` and the Hungarian
+    assignments bit for bit."""
+    from laudnet_tpu_torch.detection.detr import (_set_prediction_cost,
+                                                  cxcywh_to_xyxy, detr_detect,
+                                                  hungarian_match_many,
+                                                  nms_keep_mask, ReplayDraws)
+    from laudnet_tpu_torch.detection.runner import (
+        DetTrainConfig, batch_to_device, build_detector,
+        load_backbone_checkpoint, make_detection_sgd,
+        make_detector_train_step, synthetic_coco_batches)
+    from laudnet_tpu_torch.ops.gating import ReplayNoise
+    from laudnet_tpu_torch.train.trainer import TrainState
+
+    for form in ("ddq", "mask2former"):
+        size = DETR_SMALL[form]
+        cfg, train_cfg = detr_model_cfg(form)
+        masks = form == "mask2former"
+        batch = next(synthetic_coco_batches(DETR_BATCH, size, 80, 1, seed=7,
+                                            max_gt=8, with_masks=masks))
+        cpu, _ = build_detector(cfg, device="cpu", image_size=size,
+                                generator=torch.Generator().manual_seed(3))
+        load_backbone_checkpoint(cpu, ckpts[form])
+        gpu, _ = build_detector(cfg, device=dev, image_size=size)
+        gpu.load_state_dict(cpu.state_dict())
+        x = torch.from_numpy(batch[0])
+        with torch.no_grad():
+            ref = cpu(x)
+            out = gpu(x.to(dev))
+        errs = detr_rel_errs(out, ref)
+        # bit for bit on the CPU's outputs
+        to_dev = lambda t: t.to(dev)
+        det = detr_detect(ref, size)
+        det_same("detr_detect", detr_detect(
+            {k: to_dev(ref[k]) for k in ("cls_logits", "boxes_cxcywh")},
+            size), det)
+        scores = 1.0 - torch.softmax(ref["cls_logits"], -1)[..., -1]
+        boxes = cxcywh_to_xyxy(ref["boxes_cxcywh"])
+        eligible = torch.rand(scores.shape,
+                              generator=torch.Generator().manual_seed(2)) \
+            < 0.7
+        det_same("nms_keep_mask", [nms_keep_mask(
+            to_dev(boxes), to_dev(scores), 0.8, to_dev(eligible))],
+            [nms_keep_mask(boxes, scores, 0.8, eligible)])
+        gt = batch_to_device(batch[1:4], "cpu")
+        gt_norm = gt[0] / torch.tensor([size[1], size[0]] * 2,
+                                       dtype=torch.float32)
+        gt_cxcywh = torch.cat([(gt_norm[..., :2] + gt_norm[..., 2:]) / 2,
+                               (gt_norm[..., 2:] - gt_norm[..., :2])
+                               .clamp_min(1e-6)], -1)
+        kw = dict(cls_weight=1.0, l1_weight=5.0, giou_weight=2.0)
+        cost_cpu = _set_prediction_cost(ref["cls_logits"],
+                                        ref["boxes_cxcywh"], gt_cxcywh,
+                                        gt[1], gt[2], **kw)
+        cost_gpu = _set_prediction_cost(
+            to_dev(ref["cls_logits"]), to_dev(ref["boxes_cxcywh"]),
+            to_dev(gt_cxcywh), to_dev(gt[1]), to_dev(gt[2]), **kw)
+        det_same("hungarian_match", [hungarian_match_many(cost_gpu[None])],
+                 [hungarian_match_many(cost_cpu[None])])
+        print(f"DETR card vs CPU {form} (R101 {size[0]}x{size[1]} f32): rel "
+              "err " + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+              + "; detr_detect, nms_keep_mask and the Hungarian assignment "
+              f"bit for bit [{card}]")
+        if max(errs.values()) > DETR_F32_REL:
+            raise AssertionError(f"DETR card vs CPU {form}: {errs}")
+
+        # the first f32 training step on the same draws
+        dcfg = DetTrainConfig(num_classes=80, epochs=1, steps_per_epoch=2,
+                              warmup_steps=1, with_masks=masks,
+                              mask_points=train_cfg.get("mask_points"))
+        parts = []
+        noise, draws = RecordingNoise(5), RecordingDraws(6)
+        data = batch if masks else batch[:4]
+        for model, device in ((cpu, "cpu"), (gpu, dev)):
+            opt = make_detection_sgd(model)
+            if device == "cpu":
+                gumbel, uniform = noise, draws
+            else:  # one replay for both streams: they were drawn in turn
+                gumbel, uniform = (ReplayNoise(noise.arrays),
+                                   ReplayDraws(draws.arrays))
+            step = make_detector_train_step(model, opt, dcfg, "detr",
+                                            noise=gumbel, dn_draws=uniform,
+                                            mask_draws=uniform)
+            m = step(TrainState(step=0, model=model, optimizer=opt),
+                     *batch_to_device(data, device))
+            parts.append({k: float(v) for k, v in m.items()})
+        errs = {k: abs(parts[1][k] - parts[0][k]) / max(abs(parts[0][k]),
+                                                        1e-12)
+                for k in parts[0] if k.startswith("loss")}
+        print(f"DETR card vs CPU {form}: first f32 train step, loss parts "
+              "rel err " + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+              + f" (card loss {parts[1]['loss']:.6f}) [{card}]")
+        if not all(v <= DETR_F32_REL for v in errs.values()):
+            raise AssertionError(f"DETR train step card vs CPU {form}: "
+                                 f"{errs}")
+        del cpu, gpu
+
+
+def detr_converge(dev, card):
+    """(c) Each form at backbone depth 1-1-1-1 (the configs' widths,
+    queries and levels otherwise), 3 classes, trained on the card on one
+    repeated batch: finite losses (DDQ's ``loss_dn`` and ``loss_dec_aux``
+    among them, JAX's ``test_ddq_trains_end_to_end``), the mean of the last
+    3 below DETR_CONVERGE x the first."""
+    from laudnet_tpu_torch.detection.runner import (
+        DetTrainConfig, batch_to_device, build_detector, make_detection_sgd,
+        make_detector_train_step, synthetic_coco_batches)
+    from laudnet_tpu_torch.train.trainer import TrainState
+
+    for form, size in (("ddq", 128), ("mask2former", 64)):
+        cfg, train_cfg = detr_model_cfg(form, backbone_layers=(1, 1, 1, 1),
+                                        num_classes=3)
+        masks = form == "mask2former"
+        model, _ = build_detector(cfg, device=dev, image_size=size,
+                                  generator=torch.Generator(dev)
+                                  .manual_seed(0))
+        batch = next(synthetic_coco_batches(2, size, 3, 1, seed=3,
+                                            with_masks=masks))
+        dcfg = DetTrainConfig(
+            num_classes=3, base_lr=DETR_CONVERGE_LR, lr_mult=1.0, epochs=1,
+            steps_per_epoch=DETR_CONVERGE_STEPS, warmup_steps=1,
+            lambda_sparse=0.1, with_masks=masks,
+            mask_points=1024 if masks else None)
+        opt = make_detection_sgd(model, lr_mult=1.0)
+        step = make_detector_train_step(model, opt, dcfg, "detr", seed=0)
+        state = TrainState(step=0, model=model, optimizer=opt)
+        data = batch_to_device(batch if masks else batch[:4], dev)
+        t = time.perf_counter()
+        history = [step(state, *data) for _ in range(DETR_CONVERGE_STEPS)]
+        losses = [float(m["loss"]) for m in history]
+        ratio = statistics.mean(losses[-3:]) / losses[0]
+        print(f"DETR convergence {form} (depth 1-1-1-1, {size} px, "
+              f"{DETR_CONVERGE_STEPS} steps on one batch, lr "
+              f"{DETR_CONVERGE_LR}): losses {[round(v, 3) for v in losses]}"
+              f", last-3 mean / first {ratio:.3f} in "
+              f"{time.perf_counter() - t:.1f} s [{card}]")
+        finite = all(math.isfinite(float(v)) for m in history
+                     for k, v in m.items() if k.startswith("loss"))
+        need = ("loss_dn", "loss_dec_aux") if form == "ddq" else (
+            "loss_mask", "loss_mask_aux")
+        if not (finite and all(k in history[-1] for k in need)
+                and ratio < DETR_CONVERGE):
+            raise AssertionError(f"DETR convergence {form}: {losses}, "
+                                 f"{sorted(history[-1])}")
+
+
+def top_kernels(fn, rows=6):
+    """The ``rows`` kernels of one ``fn()`` call with the most device time:
+    ``name[:48] ms`` each, ms per call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = sorted((e for e in prof.key_averages()
+                     if e.device_type.name == "CUDA"),
+                    key=lambda e: -e.self_device_time_total)
+    return "; ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3:.2f} "
+                     f"x{e.count}" for e in events[:rows])
+
+
+def detr_numbers(dev, ckpts, card):
+    """(d) Per form at DETR_SIZE and DETR_BATCH, f32: the eval forward,
+    ``detr_detect``, the DDQ query initialisation's NMS and one decoder
+    layer's keep mask on inputs of their shapes, the Hungarian host copy
+    and matching of one step's cost stack, the train step (learning rate
+    0, so eight steps on one batch compute the same values), kernel ms,
+    kernels, idle share, peak memory, and the kernels with the most device
+    time. The forwards and detects run once more under
+    ``torch.cuda.set_sync_debug_mode("error")``."""
+    from laudnet_tpu_torch.detection.detr import (detr_detect,
+                                                  hungarian_match_many,
+                                                  nms_keep_mask)
+    from laudnet_tpu_torch.detection.retinanet import nms
+    from laudnet_tpu_torch.detection.runner import (
+        DetTrainConfig, batch_to_device, build_detector,
+        load_backbone_checkpoint, make_detection_sgd,
+        make_detector_train_step, synthetic_coco_batches)
+    from laudnet_tpu_torch.train.trainer import TrainState
+
+    for form in ("ddq", "mask2former"):
+        size = DETR_SIZE[form]
+        cfg, train_cfg = detr_model_cfg(form)
+        masks = form == "mask2former"
+        batch = next(synthetic_coco_batches(DETR_BATCH, size, 80, 1, seed=9,
+                                            max_gt=32, with_masks=masks))
+        model, _ = build_detector(cfg, device=dev, image_size=size,
+                                  generator=torch.Generator(dev)
+                                  .manual_seed(4))
+        load_backbone_checkpoint(model, ckpts[form])
+        data = batch_to_device(batch if masks else batch[:4], dev)
+        x = data[0]
+        row = {}
+        torch.cuda.reset_peak_memory_stats()
+        with torch.no_grad():
+            fwd = lambda: model(x)
+            detect = lambda o: detr_detect(o, size)
+            row["eval_ms"] = time_ms(fwd, reps=5, warmup=2)
+            out = fwd()
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                detect(fwd())
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            busy, row["eval_kernels"], wall = kernel_profile(fwd)
+            row["eval_kernel_ms"] = busy
+            row["eval_idle"] = max(0.0, 1 - busy / wall)
+            row["eval_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+            eval_top = top_kernels(fwd)
+            row["detect_ms"] = time_ms(lambda: detect(out), reps=5, warmup=1)
+            _, row["detect_kernels"], _ = kernel_profile(lambda: detect(out))
+            q = model.num_queries
+            g = torch.Generator(dev).manual_seed(1)
+            xy = torch.rand(DETR_BATCH, 4 * q, 2, device=dev, generator=g)
+            boxes = torch.cat([xy, xy + torch.rand(
+                DETR_BATCH, 4 * q, 2, device=dev, generator=g) * 0.2], -1)
+            scores = torch.rand(DETR_BATCH, 4 * q, device=dev, generator=g)
+            if form == "ddq":
+                row["ddq_init_nms_ms"] = time_ms(
+                    lambda: nms(boxes, scores, model.ddq_nms_iou, q),
+                    reps=5, warmup=1)
+                row["keep_mask_ms"] = time_ms(
+                    lambda: nms_keep_mask(boxes[:, :q], scores[:, :q],
+                                          model.ddq_nms_iou),
+                    reps=5, warmup=1)
+            # a step's stack: the final layer's cost and one a decoder
+            # layer (DDQ: the encoder proposals and 2 auxiliary layers;
+            # Mask2Former: 3 mask auxiliaries), 32 GT slots
+            costs = torch.rand(1 + model.dec_layers, DETR_BATCH, q, 32,
+                               device=dev, generator=g)
+            row["hungarian_ms"] = time_ms(lambda: hungarian_match_many(costs),
+                                          reps=5, warmup=1)
+
+        opt = make_detection_sgd(model)
+        step = make_detector_train_step(
+            model, opt, DetTrainConfig(
+                num_classes=80, base_lr=0.0, epochs=1, steps_per_epoch=100,
+                warmup_steps=1, with_masks=masks,
+                mask_points=train_cfg.get("mask_points")), "detr", seed=1)
+        state = TrainState(step=0, model=model, optimizer=opt)
+        train = lambda: step(state, *data)
+        for _ in range(2):
+            m = train()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(4):
+            t = time.perf_counter()
+            m = train()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+        row["train_ms"] = statistics.median(times)
+        row["train_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        busy, row["train_kernels"], wall = kernel_profile(train)
+        row["train_kernel_ms"] = busy
+        row["train_idle"] = max(0.0, 1 - busy / wall)
+        if not all(math.isfinite(float(v)) for k, v in m.items()
+                   if k.startswith("loss")):
+            raise AssertionError(f"DETR {form} train step: {m}")
+        print(f"DETR {form} eval forward, kernels by device ms: {eval_top}")
+        print(f"DETR {form} train step, kernels by device ms: "
+              f"{top_kernels(train)}")
+        print(f"DETR numbers {form} (LAUD-R101 {DETR_MODE[form]}, "
+              f"{size[0]}x{size[1]} bs{DETR_BATCH}, f32): "
+              + ", ".join(f"{k} {v:.4f}" if isinstance(v, float)
+                          else f"{k} {v}" for k, v in row.items())
+              + f" [{card}]")
+        del model, opt, state, step
+        torch.cuda.empty_cache()
+
+
+def phase_detr(dev, card):
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpts = {form: write_imagenet_checkpoint(
+            os.path.join(tmp, f"laud_r101_{mode}.pth.tar"), dev,
+            dyn_mode=mode) for form, mode in DETR_MODE.items()}
+        coco = write_coco_dir(os.path.join(tmp, "coco"))
+        print(f"DETR set-up: ImageNet LAUD-R101 files and COCO directory in "
+              f"{time.perf_counter() - t0:.1f} s")
+        # the main path launches none of the port's kernels (none is on it)
+        _, launched = counted(lambda: detr_cli_runs(tmp, ckpts, coco, card))
+        if any(launched.values()):
+            raise AssertionError(f"DETR launched port kernels: {launched}; "
+                                 f"name them in the kernel table")
+        detr_card_vs_cpu(dev, ckpts, card)
+        detr_converge(dev, card)
+        _, launched = counted(lambda: detr_numbers(dev, ckpts, card))
+        if any(launched.values()):
+            raise AssertionError(f"DETR launched port kernels: {launched}")
+    print(f"DETR: phase 17 in {time.perf_counter() - t0:.1f} s [{card}]")
+
+
 REPLACES = {
     "fused_vit_block": "laudnet_tpu/ops/pallas/vit_block.py:303",
     "fused_vit_segment": "laudnet_tpu/ops/pallas/vit_block.py:472",
@@ -4042,6 +4470,11 @@ def main():
         print(f"detection phase passed in {time.perf_counter() - t0:.1f} s "
               f"[{card}]")
         return
+    if sys.argv[1:] == ["detr"]:
+        phase_detr(dev, card)
+        print(f"DETR phase passed in {time.perf_counter() - t0:.1f} s "
+              f"[{card}]")
+        return
     if sys.argv[1:] == ["engine"]:
         phase_engine(dev, card)
         print(f"engine phase passed in {time.perf_counter() - t0:.1f} s "
@@ -4089,6 +4522,8 @@ def main():
     timed("parallel")
     phase_detection(dev, card)
     timed("detection")
+    phase_detr(dev, card)
+    timed("DETR")
     launches = MAIN_PATH_LAUNCHES
     kernels = []
     for name, rows in results.items():

@@ -22,6 +22,11 @@ parameter and BatchNorm statistic is set, or it raises. Conversions:
   ``stage{s}_{b}`` with ``{a,b,c,proj}_conv``, ``{a,b,c,proj}_bn``,
   ``se/fc1`` and ``se/fc2`` (1x1 convolutions with biases), and ``fc``);
 * ``cls_token``, ``pos_embed`` and biases as they are;
+* the DETR family's attention projections (`detection/detr.py`
+  ``HeadsIn``/``HeadsOut``, modules marked ``FLAX_LAYOUT``) keep flax's
+  ``DenseGeneral`` kernels as they are: (D, H, dh) for query, key and
+  value, (H, dh, D) for the output; ``nn.Embed``'s ``embedding``,
+  ``level_embed``, ``pos_embed_{i}`` and ``query_embed`` as they are;
 * the ``t2t_stem`` subtree (``attn1``/``attn2``: ``norm1``, ``kqv``,
   ``proj``, ``norm2``, ``fc1``, ``fc2``, and ``project``) by the same
   rules. A performer's fixed feature matrix ``w`` (m, d) is copied as it
@@ -154,7 +159,8 @@ def to_flax_tree(model: nn.Module, grads: bool = False) -> dict:
     without one gives zeros) as a nested dict in the flax ``params`` layout
     with f32 numpy leaves: Linear ``weight`` (out, in) -> ``kernel``
     (in, out), Conv2d OIHW -> HWIO, ConvTranspose2d IOHW -> HWIO with the
-    taps flipped back, LayerNorm and BatchNorm ``weight`` -> ``scale``,
+    taps flipped back, a ``FLAX_LAYOUT`` module's ``weight`` -> ``kernel``
+    as it is, LayerNorm and BatchNorm ``weight`` -> ``scale``,
     ``blocks.{i}`` -> ``block_{i}``; the rest as it is."""
     kinds = {name: type(m) for name, m in model.named_modules()}
     tree: dict = {}
@@ -167,7 +173,9 @@ def to_flax_tree(model: nn.Module, grads: bool = False) -> dict:
         module, _, leaf = name.rpartition(".")
         kind = kinds.get(module)
         if leaf == "weight" and kind is not None:
-            if issubclass(kind, (nn.LayerNorm, BatchNorm)):
+            if getattr(kind, "FLAX_LAYOUT", False):
+                leaf = "kernel"  # already in flax's layout
+            elif issubclass(kind, (nn.LayerNorm, BatchNorm)):
                 leaf = "scale"
             elif issubclass(kind, nn.ConvTranspose2d):
                 leaf = "kernel"

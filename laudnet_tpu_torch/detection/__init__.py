@@ -1,9 +1,12 @@
-"""The CNN detectors of the PyTorch port (counterpart of
-`laudnet_tpu/detection/` without its DETR family): LAUD-ResNet backbones
-under RetinaNet and Faster/Mask R-CNN, their losses, the runner and the
-CLI (``python -m laudnet_tpu_torch.detection.cli``)."""
+"""The detectors of the PyTorch port (counterpart of
+`laudnet_tpu/detection/`): LAUD-ResNet backbones under RetinaNet, Faster/
+Mask R-CNN and the DETR family (DDQ-DETR, Mask2Former), their losses, the
+runner and the CLI (``python -m laudnet_tpu_torch.detection.cli``)."""
 
 from laudnet_tpu_torch.detection.backbone import LAUDDetBackbone
+from laudnet_tpu_torch.detection.detr import (DETRDetector, detr_detect,
+                                              detr_loss, hungarian_match,
+                                              nms_keep_mask)
 from laudnet_tpu_torch.detection.eval_info import evaluate_get_info
 from laudnet_tpu_torch.detection.fpn import FPN
 from laudnet_tpu_torch.detection.losses import loss_sparse
@@ -31,4 +34,6 @@ __all__ = [
     "make_detection_sgd", "make_detector_train_step",
     "mean_average_precision", "synthetic_coco_batches", "train_detector",
     "build_detector", "evaluate_detector", "evaluate_get_info",
+    "DETRDetector", "detr_loss", "detr_detect", "hungarian_match",
+    "nms_keep_mask",
 ]

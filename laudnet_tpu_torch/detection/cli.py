@@ -5,7 +5,8 @@
 ``--data_dir`` points at a COCO-format dataset (``annotations/
 instances_*.json`` or a flat ``{split}.json`` + ``images/``,
 `laudnet_tpu_torch/data/coco.py`); without it the synthetic-COCO smoke
-generator feeds the run. The DETR family is refused (not ported yet).
+generator feeds the run. A DETR-family model is built for ``--image_size``
+(its position embeddings are sized from the input) and stays f32.
 
 Usage::
 
@@ -15,6 +16,9 @@ Usage::
         --init_from laud_r101_channel.pth.tar
     python -m laudnet_tpu_torch.detection.cli eval_info \\
         configs/detection/... --work_dir out/ --image_size 800,1344
+    python -m laudnet_tpu_torch.detection.cli train \\
+        configs/detection/mask2former_laud_r101_layer_0x5.py \\
+        --work_dir m2f/ --image_size 1024 --batch_size 2
     # on the CPU at a cut depth:
     python -m laudnet_tpu_torch.detection.cli train CONFIG --device cpu \\
         --image_size 64 --num_classes 3 --epochs 1 --steps_per_epoch 2
@@ -84,6 +88,8 @@ def _parser():
 
 
 def _build(args):
+    """The config's detector for ``args`` (a DETR-family one at
+    ``args.image_size``), its kind, model dict and train_cfg."""
     cfg = Config.fromfile(args.config)
     model_cfg = dict(cfg["model"])
     if args.num_classes is not None:
@@ -93,7 +99,8 @@ def _build(args):
     device = resolve_device(args.device)
     model, kind = build_detector(
         model_cfg, device=device,
-        generator=torch.Generator(device).manual_seed(args.seed))
+        generator=torch.Generator(device).manual_seed(args.seed),
+        image_size=args.image_size)
     return model, kind, model_cfg, dict(cfg.get("train_cfg", {}))
 
 
@@ -120,7 +127,8 @@ def main(argv=None):
     model, kind, model_cfg, train_cfg = _build(args)
     os.makedirs(args.work_dir, exist_ok=True)
     num_classes = model_cfg["num_classes"]
-    # from the built model: the MaskRCNN type implies with_masks
+    # from the built model: the MaskRCNN and Mask2Former types imply
+    # with_masks
     with_masks = bool(getattr(model, "with_masks", False))
 
     def coco_data_fn(steps, *, shuffle, seed):
@@ -159,7 +167,11 @@ def main(argv=None):
             epochs=args.epochs or int(train_cfg.get("epochs", 12)),
             steps_per_epoch=args.steps_per_epoch,
             sparsity_target=float(model_cfg.get("sparsity_target", 0.5)),
-            with_masks=with_masks)
+            with_masks=with_masks,
+            mask_points=(int(train_cfg["mask_points"])
+                         if train_cfg.get("mask_points") else None),
+            oversample_ratio=float(train_cfg.get("oversample_ratio", 3.0)),
+            importance_ratio=float(train_cfg.get("importance_ratio", 0.75)))
         data_fn = None
         if dataset is not None:
             def data_fn(steps):

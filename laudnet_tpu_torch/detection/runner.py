@@ -1,10 +1,10 @@
 """COCO-style detection training and evaluation runner (counterpart of
-`laudnet_tpu/detection/runner.py`, without its DETR branches).
+`laudnet_tpu/detection/runner.py`).
 
-One train step drives RetinaNet or Faster/Mask R-CNN on a LAUD backbone
-with the reference's knobs: the backbone's ``lr_mult`` (the
-scale_backbone_lr configs use 0.2-0.5), a fixed Gumbel temperature, and
-the ``loss_sparse`` injection. Evaluation is mAP plus the per-image FLOPs
+One train step drives RetinaNet, Faster/Mask R-CNN or the DETR family
+(DDQ-DETR, Mask2Former) on a LAUD backbone with the reference's knobs:
+the backbone's ``lr_mult`` (the scale_backbone_lr configs use 0.2-0.5), a
+fixed Gumbel temperature, and the ``loss_sparse`` injection. Evaluation is mAP plus the per-image FLOPs
 accounting of `detection/eval_info.py`.
 
 The optimizer is the JAX package's detection SGD, not the classification
@@ -25,6 +25,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from laudnet_tpu_torch.detection.detr import UniformDraws, detr_loss
 from laudnet_tpu_torch.detection.train import retinanet_loss
 from laudnet_tpu_torch.detection.two_stage_train import faster_rcnn_loss
 from laudnet_tpu_torch.device import full_f32_convolutions
@@ -36,38 +37,44 @@ DETR_TYPES = ("DETRDetector", "Mask2Former")
 
 
 def build_detector(model_cfg: dict, *, device=None,
-                   generator: Optional[torch.Generator] = None):
+                   generator: Optional[torch.Generator] = None,
+                   image_size=None):
     """Instantiates a detector from a ``configs/detection/*.py`` model dict
     (``type`` selects the class, the rest are constructor arguments; a
     truthy ``amp`` gives ``compute_dtype=torch.bfloat16``). Returns
     ``(model, kind)``, ``kind`` the runner's loss and decode key. The DETR
-    family is refused: it is not ported yet."""
+    family takes ``image_size`` (its position embeddings are sized from
+    the input) and refuses ``amp``, as the JAX package does: it stays f32
+    (its Hungarian costs are tie-sensitive)."""
+    from laudnet_tpu_torch.detection.detr import DETRDetector
     from laudnet_tpu_torch.detection.retinanet import RetinaNet
     from laudnet_tpu_torch.detection.two_stage import FasterRCNN
 
     cfg = dict(model_cfg)
     name = cfg.pop("type")
-    if name in DETR_TYPES:
-        raise ValueError(
-            f"detector type {name!r} is a DETR-family detector, which the "
-            "PyTorch port does not have yet: its DETR slice (detr.py: the "
-            "deformable encoder, the DDQ decoder, Mask2Former, the "
-            "Hungarian match) is still to come")
     classes = {"RetinaNet": (RetinaNet, "retinanet"),
                "FasterRCNN": (FasterRCNN, "faster_rcnn"),
-               "MaskRCNN": (FasterRCNN, "faster_rcnn")}
+               "MaskRCNN": (FasterRCNN, "faster_rcnn"),
+               "DETRDetector": (DETRDetector, "detr"),
+               "Mask2Former": (DETRDetector, "detr")}
     if name not in classes:
         raise ValueError(f"unknown detector type {name!r}")
     klass, kind = classes[name]
-    if name == "MaskRCNN":
+    if name in ("MaskRCNN", "Mask2Former"):
         cfg.setdefault("with_masks", True)
-    for k in ("dyn_mode", "backbone_layers"):
+    for k in ("dyn_mode", "backbone_layers", "out_indices"):
         if k in cfg:
             cfg[k] = tuple(cfg[k])
     if cfg.pop("amp", False):
+        if kind == "detr":
+            raise ValueError("amp=True is not supported for the DETR "
+                             "family (f32 Hungarian matching); remove it "
+                             "from the config")
         # bf16 towers over f32 masters; gating heads and final predictors
         # exit f32, so decode, matching and losses are unchanged
         cfg["compute_dtype"] = torch.bfloat16
+    if kind == "detr":
+        cfg["image_size"] = image_size
     return klass(device=device, generator=generator, **cfg), kind
 
 
@@ -120,6 +127,12 @@ class DetTrainConfig:
     sparsity_target: float = 0.5
     lambda_sparse: float = 1.0
     with_masks: bool = False
+    # Mask2Former's point-sampled mask loss (12544 points, oversample 3.0,
+    # importance 0.75 in the reference); None: the dense full-grid loss of
+    # the final layer
+    mask_points: Optional[int] = None
+    oversample_ratio: float = 3.0
+    importance_ratio: float = 0.75
 
 
 def lr_at(step: int, cfg: DetTrainConfig) -> float:
@@ -139,21 +152,31 @@ def lr_at(step: int, cfg: DetTrainConfig) -> float:
 
 def make_detector_train_step(model: nn.Module, optimizer, cfg: DetTrainConfig,
                              kind: str = "faster_rcnn", seed: int = 0,
-                             noise=None) -> Callable:
+                             noise=None, dn_draws=None,
+                             mask_draws=None) -> Callable:
     """Builds ``train_step(state, images, gt_boxes, gt_labels, gt_valid,
     gt_masks=None) -> metrics`` for ``kind`` in {'retinanet',
-    'faster_rcnn'} (the mask loss joins when the model emits mask logits
-    and the batch carries masks). ``state`` is a `train.trainer.TrainState`;
-    the model and optimizer update in place. The Gumbel noise is a
-    `GumbelNoise` on the model's device re-seeded each step from (seed,
-    step), or the given ``noise`` source. An f32 model takes the whole step
-    with cuDNN's TF32 off. The metrics stay on the device."""
-    if kind not in ("retinanet", "faster_rcnn"):
+    'faster_rcnn', 'detr'} (the mask loss joins when the model emits mask
+    logits and the batch carries masks). ``state`` is a
+    `train.trainer.TrainState`; the model and optimizer update in place.
+    The Gumbel noise is a `GumbelNoise` on the model's device re-seeded
+    each step from (seed, step), or the given ``noise`` source. DETR's
+    denoising draws and mask-loss points are `UniformDraws` re-seeded each
+    step from (seed + 1, step) and (seed + 2, step), as JAX keys its ``dn``
+    and mask streams, or the given ``dn_draws`` and ``mask_draws``. An f32
+    model takes the whole step with cuDNN's TF32 off. The metrics stay on
+    the device."""
+    if kind not in ("retinanet", "faster_rcnn", "detr"):
         raise ValueError(f"unknown detector kind {kind!r}")
-    own_noise = None
+    device = next(model.parameters()).device
+    own_noise = own_dn = own_mask = None
     if noise is None:
-        device = next(model.parameters()).device
         own_noise = noise = GumbelNoise.seeded(seed, device)
+    if kind == "detr":
+        if dn_draws is None:
+            own_dn = dn_draws = UniformDraws.seeded(seed + 1, device)
+        if mask_draws is None:
+            own_mask = mask_draws = UniformDraws.seeded(seed + 2, device)
     f32_model = getattr(model, "compute_dtype", None) is None
     params = [p for p in model.parameters() if p.requires_grad]
 
@@ -168,12 +191,27 @@ def make_detector_train_step(model: nn.Module, optimizer, cfg: DetTrainConfig,
 
     def _train_step(state, images, gt_boxes, gt_labels, gt_valid, gt_masks):
         step = state.step
-        if own_noise is not None:
-            own_noise.reseed(step_seed(seed, step))
+        for source, base in ((own_noise, seed), (own_dn, seed + 1),
+                             (own_mask, seed + 2)):
+            if source is not None:
+                source.reseed(step_seed(base, step))
         common = dict(num_classes=cfg.num_classes,
                       sparsity_target=cfg.sparsity_target,
                       lambda_sparse=cfg.lambda_sparse)
-        if kind == "retinanet":
+        if kind == "detr":
+            kw = {}
+            if getattr(model, "dn_groups", 0) > 0:
+                kw = dict(dn_gt={"boxes_xyxy": gt_boxes, "labels": gt_labels,
+                                 "valid": gt_valid}, dn_draws=dn_draws)
+            out = model(images, training=True, noise=noise, **kw)
+            total, metrics = detr_loss(
+                out, gt_boxes, gt_labels, gt_valid,
+                image_size=(float(images.shape[1]), float(images.shape[2])),
+                gt_masks=gt_masks, mask_points=cfg.mask_points,
+                oversample_ratio=cfg.oversample_ratio,
+                importance_ratio=cfg.importance_ratio,
+                mask_draws=mask_draws, **common)
+        elif kind == "retinanet":
             out = model(images, training=True, noise=noise)
             total, metrics = retinanet_loss(out, gt_boxes, gt_labels,
                                             gt_valid, **common)
@@ -518,8 +556,10 @@ def evaluate_detector(model: nn.Module, batches, *, num_classes: int,
     mAP. 'mAP' is COCO's (IoU 0.50:0.05:0.95); ``iou_thresholds=None``
     gives AP at ``iou_threshold``. The per-image FLOPs spread is included.
     Returns {'mAP', 'mAP50', 'ap_per_class', 'mean_flops',
-    'mean_flops_rate', 'flops_img_*', ...[, 'segm_mAP']}."""
-    from laudnet_tpu_torch.detection.retinanet import RetinaNet
+    'mean_flops_rate', 'flops_img_*', ...[, 'segm_mAP']}. A DETR-family
+    mask is the query's whole-image logit grid, pasted over the image."""
+    from laudnet_tpu_torch.detection.detr import detr_detect
+    from laudnet_tpu_torch.detection.retinanet import RetinaNet, gather_rows
 
     device = next(model.parameters()).device
     detections, gts = [], []
@@ -534,13 +574,22 @@ def evaluate_detector(model: nn.Module, batches, *, num_classes: int,
         img_h, img_w = images.shape[1], images.shape[2]
         if kind == "faster_rcnn":
             det_t = type(model).detect(out, score_threshold=score_threshold)
+        elif kind == "detr":
+            det_t = detr_detect(out, (float(img_h), float(img_w)),
+                                score_threshold=score_threshold)
         else:
             det_t = RetinaNet.detect(out, (img_h, img_w),
                                      score_threshold=score_threshold)
-        probs = None
+        probs = whole_image = None
         if "mask_logits" in out and gt_masks is not None:
-            probs = _mask_probs(out["mask_logits"], det_t["indices"],
-                                det_t["classes"])
+            if kind == "detr":  # (B, D, h, w) over the whole image
+                ml = gather_rows(out["mask_logits"],
+                                 det_t["indices"]).cpu().numpy()
+                probs = 1.0 / (1.0 + np.exp(-ml))
+                whole_image = np.array([0, 0, img_w, img_h])
+            else:
+                probs = _mask_probs(out["mask_logits"], det_t["indices"],
+                                    det_t["classes"])
         det = {k: v.cpu().numpy() for k, v in det_t.items()}
         add = {k: v.cpu().numpy() for k, v in out["additional"].items()}
         bsz = images.shape[0]
@@ -553,7 +602,9 @@ def evaluate_detector(model: nn.Module, batches, *, num_classes: int,
                  for k in ("boxes", "scores", "classes")}
             if probs is not None:
                 d["masks"] = [
-                    paste_mask(probs[i, j], d["boxes"][j], img_h, img_w)
+                    paste_mask(probs[i, j], d["boxes"][j]
+                               if whole_image is None else whole_image,
+                               img_h, img_w)
                     if d["scores"][j] > 0 else np.zeros((img_h, img_w), bool)
                     for j in range(len(d["scores"]))]
             detections.append(d)

@@ -2,8 +2,8 @@
 for both sides (drawn by the port's initialiser and carried to flax's
 layout by `to_flax_variables`, which costs no XLA compilation; JAX's own
 ``lazy_init`` where a test holds the converter to JAX's tree) moved off
-their identity points, JAX's Gumbel draws recorded in call order for the
-port to replay, and comparisons."""
+their identity points, JAX's Gumbel, uniform and integer draws recorded in
+call order for the port to replay, and comparisons."""
 
 from __future__ import annotations
 
@@ -93,6 +93,47 @@ def recorded_gumbel(monkeypatch):
         jax.effects_barrier()
     finally:
         monkeypatch.setattr(jax.random, "gumbel", original)
+
+
+@contextlib.contextmanager
+def recorded_draws(monkeypatch):
+    """Every ``jax.random.uniform`` and ``jax.random.randint`` draw of the
+    functions traced inside the block, in call order (for a
+    `detection.detr.ReplayDraws`)."""
+    recorded = []
+
+    def recording(original):
+        def draw(*args, **kw):
+            out = original(*args, **kw)
+            jax.debug.callback(lambda v: recorded.append(np.asarray(v)), out,
+                               ordered=True)
+            return out
+        return draw
+
+    originals = {name: getattr(jax.random, name)
+                 for name in ("uniform", "randint")}
+    for name, original in originals.items():
+        monkeypatch.setattr(jax.random, name, recording(original))
+    try:
+        yield recorded
+        jax.effects_barrier()
+    finally:
+        for name, original in originals.items():
+            monkeypatch.setattr(jax.random, name, original)
+
+
+def jitter(tree, seed=0, scale=0.05):
+    """Moves every all-zero f32 leaf of a flax tree (the zero-initialised
+    kernels and biases) to small normal values, in place, so that no
+    parameter sits on a point where its gradient or effect vanishes."""
+    rng = np.random.default_rng(seed)
+    for k, leaf in tree.items():
+        if isinstance(leaf, dict):
+            jitter(leaf, int(rng.integers(1 << 30)), scale)
+        elif leaf.dtype == np.float32 and not leaf.any():
+            tree[k] = (rng.standard_normal(leaf.shape) * scale).astype(
+                np.float32)
+    return tree
 
 
 def np_(x):

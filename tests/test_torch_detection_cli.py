@@ -5,8 +5,8 @@ detections, `evaluate_detector` on the same model and batches,
 auto-resume, ``init_from`` from a ``.pth.tar`` written by JAX's
 `save_pth_tar`, the CLI's ``train`` then ``eval_info`` on ``--device cpu``
 (synthetic data and a COCO-format ``--data_dir``) at a cut depth, every
-CNN config of ``configs/detection/``, and the refusals (DETR types, unknown
-types, no silent CPU fallback)."""
+config of ``configs/detection/`` built, and the refusals (``amp`` for the
+DETR types, unknown types, no silent CPU fallback)."""
 
 import glob
 import json
@@ -200,29 +200,47 @@ def cut_config(src, dst):
 @pytest.mark.parametrize("path", CONFIGS, ids=os.path.basename)
 def test_build_detector_every_config(path):
     """Every config builds (full depth, no memory on the meta device) as
-    its type says, and the DETR family is refused by name."""
+    its type says; a DETR-family one for an image size, and it refuses
+    ``amp`` as JAX's does."""
     model_cfg = dict(Config.fromfile(path)["model"])
     if model_cfg["type"] in trun.DETR_TYPES:
-        with pytest.raises(ValueError, match="DETR slice.*still to come"):
-            trun.build_detector(model_cfg, device="meta")
-        return
-    model, kind = trun.build_detector(dict(model_cfg, amp=True),
-                                      device="meta")
-    assert kind == {"RetinaNet": "retinanet"}.get(model_cfg["type"],
-                                                   "faster_rcnn")
-    assert model.compute_dtype == torch.bfloat16
+        with pytest.raises(ValueError, match="not supported for the DETR"):
+            trun.build_detector(dict(model_cfg, amp=True), device="meta",
+                                image_size=(800, 1344))
+        model, kind = trun.build_detector(model_cfg, device="meta",
+                                          image_size=(800, 1344))
+        assert kind == "detr" and model.image_hw == (800, 1344)
+        assert model.num_queries == model_cfg["num_queries"]
+        assert model.out_indices == tuple(model_cfg["out_indices"])
+        assert model.dn_groups == model_cfg.get("dn_groups", 0)
+        assert model.with_masks == model_cfg.get("with_masks", False)
+    else:
+        model, kind = trun.build_detector(dict(model_cfg, amp=True),
+                                          device="meta")
+        assert kind == {"RetinaNet": "retinanet"}.get(model_cfg["type"],
+                                                       "faster_rcnn")
+        assert model.compute_dtype == torch.bfloat16
+        if kind == "faster_rcnn":
+            assert model.with_masks == model_cfg.get("with_masks", False)
     assert model.backbone.layers == (3, 4, 23, 3)
     assert model.backbone.dyn_mode == tuple(model_cfg["dyn_mode"])
     assert model.backbone.sparsity_target == model_cfg["sparsity_target"]
-    if kind == "faster_rcnn":
-        assert model.with_masks == model_cfg.get("with_masks", False)
 
 
 def test_build_detector_refusals_and_no_cpu_fallback(tmp_path):
+    """An unknown type and a DETR type under ``amp`` raise; the DETR
+    types build (``Mask2Former`` with masks); without ``--device`` the CLI
+    builds on the card, and with none PyTorch refuses."""
     with pytest.raises(ValueError, match="unknown detector type"):
         trun.build_detector(dict(type="YOLO"), device="meta")
     with pytest.raises(ValueError, match="DETR"):
-        trun.build_detector(dict(type="Mask2Former"), device="meta")
+        trun.build_detector(dict(type="Mask2Former", amp=True),
+                            device="meta", image_size=64)
+    for name in trun.DETR_TYPES:
+        model, kind = trun.build_detector(dict(type=name), device="meta",
+                                          image_size=64)
+        assert kind == "detr"
+        assert model.with_masks == (name == "Mask2Former")
     retina = [p for p in CONFIGS if "retinanet_laud" in p][0]
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is usable")
