@@ -157,7 +157,18 @@ each raising on failure:
     eval forward, detect, the DDQ initialisation's NMS, a keep mask, the
     Hungarian host copy, the train step, kernel ms, kernels, idle share,
     peak memory, the kernels with the most device time; the forwards and
-    detects under ``torch.cuda.set_sync_debug_mode("error")``.
+    detects under ``torch.cuda.set_sync_debug_mode("error")``;
+18. the last two tools: B1 (L = 197 full and 137 ragged with a head gate)
+    and a 5-layer B2 segment (L = 98, interior gates that bite) at DeiT-B
+    width (D = 768, 12 heads, hidden 3,072: proj and fc2 run their row
+    passes as launches of their own) against their plain versions within
+    ULPS; the segment probe (`tools/probe_segments.py`, default mode and
+    ``--sweep``: every ``seg`` form launched B2 and no B1, every ``blk``
+    form B1 and no B2, ``seg`` logits within ULPS of ``blk``'s; its JSON);
+    the port half of the checkpoint-parity gate
+    (`tools/compare_with_torch.py::port_outputs`) on a LAUD-R101 channel
+    2-2-2-2 file, card against CPU within DET_F32_REL, and the whole gate
+    only where the reference tree is present.
 
 Prints a JSON line of the kernels, then as its last line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX. Nothing runs at
@@ -172,7 +183,11 @@ a changed kernel), ``python3 chip_smoke.py train`` runs phases 1-3 and 6,
 and 10, ``python3 chip_smoke.py regnet`` phases 1-2 and 11-13,
 ``python3 chip_smoke.py data`` phases 1-2 and 14, ``python3 chip_smoke.py
 parallel`` phases 1-2 and 15, ``python3 chip_smoke.py detection`` phases
-1-2 and 16, ``python3 chip_smoke.py detr`` phases 1-2 and 17, and
+1-2 and 16, ``python3 chip_smoke.py detr`` phases 1-2 and 17, ``python3
+chip_smoke.py tools`` phases 1-2 and 18, ``python3 chip_smoke.py host``
+phases 1-2, phase 10's DeiT-S forms (each one's issue time on the host
+beside its run time on the card) and the launch costs of
+`tools/probe_host.py`, and
 ``python3 chip_smoke.py profile`` prints, instead of
 the phases, where a forward's device time goes (`torch.profiler`, by
 kernel) for the dense and snapped DeiT-S, W8A8 DeiT-S and T2T-ViT-19
@@ -204,13 +219,15 @@ from laudnet_tpu_torch.models import (lad_regnet_y_1_6gf, laud_deit_small,
 from laudnet_tpu_torch.models.laud_resnet import conv_nhwc
 from laudnet_tpu_torch.ops import (_build, masked_block, s8_gemm, sparse,
                                    vit_attention, vit_block)
-from laudnet_tpu_torch.tools import (probe_block_budget, probe_host,
-                                     probe_int8, serve_artifact)
+from laudnet_tpu_torch.tools import (compare_with_torch, probe_block_budget,
+                                     probe_host, probe_int8, probe_segments,
+                                     serve_artifact)
 # B3's five shapes (name, B, H = W, C, Co, patch, mask density, capacities),
 # their inputs and its kernels' device time, as the build comparison has them
 from laudnet_tpu_torch.tools.compare_b3_build import SHAPES as TAIL_SHAPES
 from laudnet_tpu_torch.tools.compare_b3_build import device as b3_device
 from laudnet_tpu_torch.tools.compare_b3_build import inputs as tail_inputs
+from laudnet_tpu_torch.tools import timing
 from laudnet_tpu_torch.tools.timing import chain_times
 
 B, L_FULL, IMG = 128, 197, 224
@@ -491,10 +508,7 @@ def in_turns(fn, library, rounds=3, reps=10, chain=10):
     call's host work (a Python wrapper, PyTorch's dispatch) hides under
     the previous call's device time and the two sides compare as
     kernels."""
-    k, lib = [], []
-    for _ in range(rounds):
-        for side, f in ((k, fn), (lib, library), (lib, library), (k, fn)):
-            side.append(statistics.median(chain_times(f, chain, reps, 2)))
+    k, lib = timing.in_turns(fn, library, chain, rounds, reps)
     return statistics.median(k), statistics.median(lib)
 
 
@@ -2251,6 +2265,29 @@ def interleaved_ms(fns, rounds=3, reps=3, label=None, card=""):
     return medians
 
 
+def issue_and_run_ms(fn, reps=5):
+    """Median host ms to issue a call of ``fn`` right behind another while
+    the card works through a spinning kernel queued first (so the host
+    never waits on it), and the card's ms for that call (CUDA events
+    around it): a form whose issue time passes its run time is host-bound
+    on this host."""
+    host, run = [], []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(120_000_000)  # ~70 ms: outlasts both issues
+        fn()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        t0 = time.perf_counter()
+        fn()
+        host.append((time.perf_counter() - t0) * 1e3)
+        end.record()
+        end.synchronize()
+        run.append(start.elapsed_time(end))
+    return statistics.median(host), statistics.median(run)
+
+
 def predicted_vs_measured(name, plan, measured, card):
     """Prints each ranked mode's predicted and measured ms (modes the port
     cannot serve for this model, such as another paradigm's, or the
@@ -2350,6 +2387,51 @@ def layer_deit(dev, seed=6):
     return model
 
 
+def time_deit_forms(deit, calib, images, card, ranking=None):
+    """Times the block engine's DeiT-S forms of ``deit`` (those in
+    ``ranking`` if given) at the capacities the engine calibrates on
+    ``calib``, in rounds, and prints each form's issue time on the host
+    beside its run time on the card; returns the median ms of each."""
+    # the calibrated capacities before snapping: the same engine unsnapped
+    nominal = ServingEngine(deit).calibrate(calib).token_capacity
+    full = (1.0,) * 12
+    nominal = nominal or full
+    forms = {"dense": dict(),
+             "mask": dict(token_capacity=full),
+             "token": dict(token_capacity=nominal),
+             "token-snapped": dict(token_capacity=nominal,
+                                   snap_capacities=True),
+             "dense-int8": dict(token_capacity=full, int8=True),
+             "token-int8": dict(token_capacity=nominal, int8=True),
+             "token-snapped-int8": dict(token_capacity=nominal,
+                                        snap_capacities=True, int8=True)}
+    # on a slow host these forms are host-bound, so they get the rounds of
+    # the host-bound batch-1 forms: at 3 rounds token-snapped read 8.37 ms
+    # against dense's 6.58 (1.27x, past ORDER_GAP) in one whole run
+    calls = {mode: (lambda fwd=build_fused_vit(deit, **kw): fwd(images))
+             for mode, kw in forms.items() if ranking is None
+             or mode in ranking}
+    measured = interleaved_ms(calls, rounds=BATCH1_ROUNDS, label="deit",
+                              card=card)
+    for mode, call in calls.items():
+        host, run = issue_and_run_ms(call)
+        print(f"deit {mode}: the host issues a call in {host:.4f} ms, the "
+              f"card runs it in {run:.4f} ms [{card}]")
+    return measured
+
+
+def phase_host(dev, card):
+    """The engine's DeiT-S forms alone (`time_deit_forms`), and the block
+    wrappers' host costs (`tools/probe_host.py`): where a slow host holds
+    phase 10's forms back."""
+    images = torch.randn(B, IMG, IMG, 3, device=dev,
+                         generator=torch.Generator(dev).manual_seed(7))
+    calib = [torch.randn(B, IMG, IMG, 3, device=dev, generator=torch.Generator(
+        dev).manual_seed(8 + i)) for i in range(2)]
+    time_deit_forms(token_gated_deit(dev), calib, images, card)
+    probe_host.run()
+
+
 def phase_engine(dev, card):
     """`ServingEngine` on four configurations: calibrate, plan, serve;
     ``served == mode``; the served logits against the directly built path;
@@ -2385,22 +2467,7 @@ def phase_engine(dev, card):
     print(f"deit engine: capacities {caps}, tokens per layer "
           f"{direct.token_counts}, launches {delta}; served logits equal "
           f"build_fused_vit's")
-    # the calibrated capacities before snapping: the same engine unsnapped
-    nominal = ServingEngine(deit).calibrate(calib).token_capacity
-    full = (1.0,) * 12
-    nominal = nominal or full
-    forms = {"dense": dict(),
-             "mask": dict(token_capacity=full),
-             "token": dict(token_capacity=nominal),
-             "token-snapped": dict(token_capacity=nominal,
-                                   snap_capacities=True),
-             "dense-int8": dict(token_capacity=full, int8=True),
-             "token-int8": dict(token_capacity=nominal, int8=True),
-             "token-snapped-int8": dict(token_capacity=nominal,
-                                        snap_capacities=True, int8=True)}
-    measured = interleaved_ms({
-        mode: (lambda fwd=build_fused_vit(deit, **kw): fwd(images))
-        for mode, kw in forms.items() if mode in plan.ranking})
+    measured = time_deit_forms(deit, calib, images, card, plan.ranking)
     reversed_pairs += predicted_vs_measured("deit", plan, measured, card)
     del deit, engine, direct
 
@@ -4416,6 +4483,113 @@ def phase_detr(dev, card):
     print(f"DETR: phase 17 in {time.perf_counter() - t0:.1f} s [{card}]")
 
 
+# --- the last two tools (phase 18) ---------------------------------------------
+
+DEIT_B = dict(d=768, heads=12, hidden=3072)
+
+
+def phase_tools(dev, card, results=None):
+    """18. B1 and B2 at DeiT-B width against their plain versions, the
+    segment probe (`tools/probe_segments.py`, default mode and
+    ``--sweep``), and the port half of the checkpoint-parity gate
+    (`tools/compare_with_torch.py`) on the card against the CPU."""
+    from laudnet_tpu_torch.convert import load_pth_tar
+
+    t0 = time.perf_counter()
+    if results is None:
+        results = {"fused_vit_block": [], "fused_vit_segment": []}
+    # --- DeiT-B width (D = 768, 12 heads, hidden 3,072): `row_cluster` takes
+    # no row of 768, so proj and fc2 run their product and their row pass
+    # (LN2; in B2 the next gate and LN1) as separate launches
+    g = torch.Generator().manual_seed(18)
+    d, heads, hidden = DEIT_B["d"], DEIT_B["heads"], DEIT_B["hidden"]
+    if vit_block.row_cluster(d):
+        raise AssertionError("D=768 now takes the row epilogues: this check "
+                             "no longer holds the separate launches")
+    layer = layer_params(g, dev, d, hidden)
+    for l, ragged, gated in ((L_FULL, False, False), (137, True, True)):
+        x = stream(g, l, d, dev)
+        mask = key_mask(g, l, dev, ragged)
+        gate = head_gate(g, heads, dev) if gated else None
+        args = (x, mask.reshape(B, 1, l), mask.reshape(B, l, 1), layer)
+        for fast in (False, True):
+            kw = dict(num_heads=heads, fast_math=fast, head_gate=gate)
+            compare(f"B1 fused_vit_block D={d} L={l} "
+                    f"{'ragged' if ragged else 'full'} mask fast_math={fast}"
+                    f"{' head gate' if gated else ''} (DeiT-B width)",
+                    lambda: vit_block.fused_vit_block(*args, **kw),
+                    lambda: vit_block.fused_vit_block_reference(*args, **kw),
+                    card, results, "fused_vit_block", "",
+                    block_bound(l, d, heads, hidden))
+    seg = [layer_params(g, dev, d, hidden, policy=i > 0) for i in range(5)]
+    x = stream(g, 98, d, dev)
+    mask = torch.ones(B, 98, device=dev)
+    for fast in (False, True):
+        kw = dict(num_heads=heads, fast_math=fast)
+        _, out_mask = vit_block.fused_vit_segment(x, mask, seg, **kw)
+        _, ref_mask = vit_block.fused_vit_segment_reference(x, mask, seg, **kw)
+        kept = ref_mask.mean().item()
+        if not torch.equal(out_mask, ref_mask):
+            raise AssertionError("B2 token_mask differs from plain at D=768")
+        if not 0.0 < kept < 1.0:
+            raise AssertionError(f"B2 gates did not bite: kept {kept}")
+        compare(f"B2 fused_vit_segment 5 layers D={d} L=98 fast_math={fast} "
+                f"(token_mask equal, kept {kept:.4f}; DeiT-B width)",
+                lambda: vit_block.fused_vit_segment(x, mask, seg, **kw)[0],
+                lambda: vit_block.fused_vit_segment_reference(
+                    x, mask, seg, **kw)[0],
+                card, results, "fused_vit_segment", "",
+                block_bound(98, d, heads, hidden, layers=5))
+    del layer, seg, x
+    print(f"tools: DeiT-B width held in {time.perf_counter() - t0:.1f} s")
+
+    # --- the segment probe: each form's checked forward is a main path; its
+    # timed forwards are not
+    drive = lambda fn: counted(fn)[0]  # noqa: E731
+    for sweep in (False, True):
+        t1 = time.perf_counter()
+        print(f"--- probe_segments{' --sweep' if sweep else ''} [{card}]")
+        print(json.dumps(probe_segments.run(sweep=sweep, device=dev,
+                                            drive=drive)))
+        print(f"probe_segments{' --sweep' if sweep else ''} in "
+              f"{time.perf_counter() - t1:.1f} s")
+
+    # --- the checkpoint-parity gate's port half, card against CPU
+    t1 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = write_imagenet_checkpoint(
+            os.path.join(tmp, "laud_r101_channel.pth.tar"), dev)
+        argv = ["--checkpoint", ckpt, "--arch", "uni_resnet101"]
+        args = compare_with_torch.parse_args(argv)
+        state = load_pth_tar(ckpt)
+        x = compare_with_torch.inputs(args)
+        on_card = compare_with_torch.port_outputs(args, state, x, dev)
+        on_cpu = compare_with_torch.port_outputs(args, state, x, "cpu")
+        logit_err, top1, fp_err, _ = compare_with_torch.parity(on_card,
+                                                               on_cpu)
+        rels = [det_rel(torch.from_numpy(a), torch.from_numpy(b))
+                for a, b in zip(on_card, on_cpu)]
+        print(f"compare_with_torch port half, LAUD-R101 channel 2-2-2-2 "
+              f"bs{args.batch} f32, card against CPU: logits "
+              f"{tuple(on_card[0].shape)} max |diff| {logit_err:.3g} (rel "
+              f"{rels[0]:.3g}), top-1 {top1:.4f}, flops_perc max |diff| "
+              f"{fp_err:.3g} (rel {rels[1]:.3g}; bound DET_F32_REL "
+              f"{DET_F32_REL}) in {time.perf_counter() - t1:.1f} s [{card}]")
+        if not (np.isfinite(on_card[0]).all() and max(rels) <= DET_F32_REL):
+            raise AssertionError("compare_with_torch: the port half on the "
+                                 "card disagrees with the CPU")
+        if os.path.isdir(compare_with_torch.REF):
+            rc = compare_with_torch.main(argv)
+            if rc:
+                raise AssertionError(f"compare_with_torch: PARITY FAIL "
+                                     f"against {compare_with_torch.REF}")
+        else:
+            print(f"compare_with_torch: the reference half was not run: no "
+                  f"{compare_with_torch.REF} on this machine (not counted "
+                  f"as passed)")
+    print(f"tools: phase 18 in {time.perf_counter() - t0:.1f} s [{card}]")
+
+
 REPLACES = {
     "fused_vit_block": "laudnet_tpu/ops/pallas/vit_block.py:303",
     "fused_vit_segment": "laudnet_tpu/ops/pallas/vit_block.py:472",
@@ -4475,6 +4649,16 @@ def main():
         print(f"DETR phase passed in {time.perf_counter() - t0:.1f} s "
               f"[{card}]")
         return
+    if sys.argv[1:] == ["tools"]:
+        phase_tools(dev, card)
+        print(f"tools phase passed in {time.perf_counter() - t0:.1f} s "
+              f"[{card}]")
+        return
+    if sys.argv[1:] == ["host"]:
+        phase_host(dev, card)
+        print(f"host phase passed in {time.perf_counter() - t0:.1f} s "
+              f"[{card}]")
+        return
     if sys.argv[1:] == ["engine"]:
         phase_engine(dev, card)
         print(f"engine phase passed in {time.perf_counter() - t0:.1f} s "
@@ -4524,6 +4708,8 @@ def main():
     timed("detection")
     phase_detr(dev, card)
     timed("DETR")
+    phase_tools(dev, card, results)
+    timed("tools")
     launches = MAIN_PATH_LAUNCHES
     kernels = []
     for name, rows in results.items():

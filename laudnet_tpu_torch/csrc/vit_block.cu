@@ -686,6 +686,107 @@ int lt_attention(const void* qkv, const void* key_mask, const void* head_gate, v
                                  softmax, stream);
 }
 
+int lt_gemm_rows(const void* a, const void* w, const void* bias, int m, int n, int k,
+                 int epilogue, const void* resid, const void* rmask, int variant, void* out,
+                 int ln_form, const void* ln_w, const void* ln_b, float eps, void* out2,
+                 const void* tp_w, const void* tp_b, void* mask, int seq_len,
+                 void* stream);  // vit_block_rows.cu
+
+// One bf16 layer of B1 or B2 in one host call: the launches
+// ops/vit_block.py::_layer_cuda lists, in its order, on ``stream``.
+// ``params``: the layer's 12 tensors in LAYER_KEYS order (ln1, qkv, proj,
+// ln2, fc1, fc2; weight then bias). ``h1``: this layer's LN1 output when
+// the fc2 before it computed it, else null, and LN1 runs here with the
+// token policy ``tp_w``/``tp_b`` (or null) composing its gate into
+// ``kmask``. ``proj_rows``: proj runs with LN2 in its epilogue, else as a
+// product and a LayerNorm launch. ``nxt_ln_w`` non-null: fc2 runs with the
+// next layer's LN1 (and its token policy ``nxt_tp_w``/``nxt_tp_b``, or
+// null) in its epilogue and writes that layer's h1 to ``h1_out``. The
+// scratch buffers ``ws_h1``, ``ws_qkv``, ``ws_attn``, ``ws_x2`` (f32),
+// ``ws_h2`` and ``ws_u`` hold (M, D), (M, 3D), (M, D), (M, D), (M, D) and
+// (M, hidden) each. Returns the first launch's error, or 0.
+int lt_vit_layer(const void* x, void* kmask, const void* rmask, const void* head_gate,
+                 const void* h1, const void* const* params, const void* tp_w,
+                 const void* tp_b, const void* nxt_ln_w, const void* nxt_ln_b,
+                 const void* nxt_tp_w, const void* nxt_tp_b, int b, int l, int d, int hidden,
+                 int num_heads, float sm_scale, float eps, int ln_form, int gemm_var,
+                 int softmax, int proj_rows, void* ws_h1, void* ws_qkv, void* ws_attn,
+                 void* ws_x2, void* ws_h2, void* ws_u, void* out, void* h1_out, void* stream) {
+    const int m = b * l;
+    const void *ln1_w = params[0], *ln1_b = params[1], *qkv_w = params[2],
+               *qkv_b = params[3], *proj_w = params[4], *proj_b = params[5],
+               *ln2_w = params[6], *ln2_b = params[7], *fc1_w = params[8],
+               *fc1_b = params[9], *fc2_w = params[10], *fc2_b = params[11];
+    int err = 0;
+    if (h1 == nullptr) {
+        err = lt_layernorm(x, 0, ws_h1, ln1_w, ln1_b, m, d, eps, ln_form, tp_w, tp_b,
+                           tp_w != nullptr ? kmask : nullptr, l, stream);
+        if (err) return err;
+        h1 = ws_h1;
+    }
+    err = lt_gemm(h1, qkv_w, qkv_b, m, 3 * d, d, EPI_QKV, nullptr, rmask, gemm_var, ws_qkv,
+                  stream);
+    if (err) return err;
+    err = lt_attention(ws_qkv, kmask, head_gate, ws_attn, b, l, num_heads, sm_scale, softmax,
+                       stream);
+    if (err) return err;
+    if (proj_rows) {
+        err = lt_gemm_rows(ws_attn, proj_w, proj_b, m, d, d, EPI_PROJ, x, rmask, gemm_var,
+                           ws_x2, ln_form, ln2_w, ln2_b, eps, ws_h2, nullptr, nullptr,
+                           nullptr, 1, stream);
+    } else {
+        err = lt_gemm(ws_attn, proj_w, proj_b, m, d, d, EPI_PROJ, x, rmask, gemm_var, ws_x2,
+                      stream);
+        if (err) return err;
+        err = lt_layernorm(ws_x2, 1, ws_h2, ln2_w, ln2_b, m, d, eps, ln_form, nullptr, nullptr,
+                           nullptr, l, stream);
+    }
+    if (err) return err;
+    err = lt_gemm(ws_h2, fc1_w, fc1_b, m, hidden, d, EPI_FC1, nullptr, rmask, gemm_var, ws_u,
+                  stream);
+    if (err) return err;
+    if (nxt_ln_w != nullptr)
+        return lt_gemm_rows(ws_u, fc2_w, fc2_b, m, d, hidden, EPI_FC2, ws_x2, rmask, gemm_var,
+                            out, ln_form, nxt_ln_w, nxt_ln_b, eps, h1_out, nxt_tp_w, nxt_tp_b,
+                            kmask, l, stream);
+    return lt_gemm(ws_u, fc2_w, fc2_b, m, d, hidden, EPI_FC2, ws_x2, rmask, gemm_var, out,
+                   stream);
+}
+
+// A B2 segment of ``n`` layers in one host call: lt_vit_layer for each,
+// ``mask`` (B, L) f32 both masks, layer i + 1 taking layer i's output and,
+// with ``fc2_rows``, the h1 its fc2 computed with that layer's LN1 and
+// token policy. ``params``: 12 pointers a layer as lt_vit_layer takes
+// them; ``policies``: a layer's token policy (weight, bias) or two nulls.
+// ``ws`` holds lt_vit_layer's six scratch buffers, then two (M, D) bf16
+// buffers the layers' outputs alternate in and two their h1s alternate
+// in; the last layer writes ``out``.
+int lt_vit_segment(const void* x, void* mask, int n, const void* const* params,
+                   const void* const* policies, int b, int l, int d, int hidden,
+                   int num_heads, float sm_scale, float eps, int ln_form, int gemm_var,
+                   int softmax, int proj_rows, int fc2_rows, void* const* ws, void* out,
+                   void* stream) {
+    const void* in = x;
+    void* h1 = nullptr;
+    for (int i = 0; i < n; ++i) {
+        const bool fused = fc2_rows && i + 1 < n;
+        const void* const* nxt = params + 12 * (i + 1);
+        const void* const* ntp = policies + 2 * (i + 1);
+        void* o = i + 1 < n ? ws[6 + (i & 1)] : out;
+        void* h1_out = fused ? ws[8 + ((i + 1) & 1)] : nullptr;
+        const int err = lt_vit_layer(
+            in, mask, mask, nullptr, h1, params + 12 * i, policies[2 * i], policies[2 * i + 1],
+            fused ? nxt[0] : nullptr, fused ? nxt[1] : nullptr, fused ? ntp[0] : nullptr,
+            fused ? ntp[1] : nullptr, b, l, d, hidden, num_heads, sm_scale, eps, ln_form,
+            gemm_var, softmax, proj_rows, ws[0], ws[1], ws[2], ws[3], ws[4], ws[5], o, h1_out,
+            stream);
+        if (err) return err;
+        in = o;
+        h1 = h1_out;
+    }
+    return 0;
+}
+
 // LayerNorm of bf16 (x_f32 = 0) or unrounded f32 rows, quantised to s8.
 int lt_layernorm_quant(const void* x, int x_f32, void* q, void* scale, const void* w,
                        const void* b, int rows, int d, float eps, void* stream) {

@@ -86,8 +86,8 @@ def gate_and_select(x, token_mask, policy, k: int):
     rounded to x's dtype, class token pinned) composes into ``token_mask``
     (B, L); if ``k < L`` the k best-ranked tokens are gathered. Returns
     ``(x, token_mask, idx)``, idx (B, k) or None."""
-    tl = token_logits(x, policy.weight, policy.bias)
-    tmask = (tl[..., 0] >= tl[..., 1]).float()
+    keep, drop = token_logits(x, policy.weight, policy.bias).unbind(-1)
+    tmask = (keep >= drop).float()
     tmask[:, 0] = 1.0
     token_mask = token_mask * tmask
     if k >= x.shape[1]:
@@ -95,9 +95,9 @@ def gate_and_select(x, token_mask, policy, k: int):
     # rank kept above dropped, ties by confidence, class token pinned.
     # lax.top_k orders by descending rank with ties to the lower index,
     # which a stable descending sort reproduces (torch.topk promises
-    # neither on CUDA).
-    score = (tl[..., 0] - tl[..., 1]).float()
-    rank = token_mask * 2.0 + torch.sigmoid(score)
+    # neither on CUDA). sigmoid + 2 * mask rounds once, as 2 * mask +
+    # sigmoid does.
+    rank = torch.sigmoid((keep - drop).float()).add_(token_mask, alpha=2.0)
     rank[:, 0] += 4.0
     idx = torch.sort(rank, dim=1, descending=True, stable=True).indices[:, :k]
     x = torch.gather(x, 1, idx[..., None].expand(-1, -1, x.shape[2]))
@@ -124,7 +124,9 @@ def build_fused_vit(model, *,
     default) uses the kernels' fast forms. ``plain`` runs the plain
     PyTorch versions of B1/B2/B6 on any device: the kernels' oracle.
     After a call, ``forward.token_counts`` holds the token count each
-    layer ran at.
+    layer ran at and ``forward.segment_layers`` the layer count of each
+    `fused_vit_segment` call, in order (empty where every layer ran
+    alone).
 
     ``head_gating`` applies the model's eval per-head gates
     (``head_policy`` on the class token at block entry, ``on >= off``)
@@ -189,6 +191,7 @@ def build_fused_vit(model, *,
                                 device=x.device)
         cur = n + 1
         counts = forward.token_counts = []
+        seg_layers = forward.segment_layers = []
 
         def entry_policy(i, x, token_mask, cur):
             if not (select and has_policy[i]):
@@ -201,15 +204,20 @@ def build_fused_vit(model, *,
         if seg_ok:
             i = 0
             while i < depth:
-                x, token_mask, cur = entry_policy(i, x, token_mask, cur)
+                # a gather ranks tokens here; a gate alone runs in the
+                # segment's first LN1 launch, as every later layer's does
+                gather = gathers_at(i, n, cur)
+                if gather:
+                    x, token_mask, cur = entry_policy(i, x, token_mask, cur)
                 j = i + 1
                 while j < depth and j - i < n_max and not gathers_at(
                         j, n, cur):
                     j += 1
-                plist = [block_params(blocks[t],
-                                      t > i and select and has_policy[t])
+                plist = [block_params(blocks[t], select and has_policy[t]
+                                      and (t > i or not gather))
                          for t in range(i, j)]
                 counts += [cur] * (j - i)
+                seg_layers.append(j - i)
                 x, token_mask = segment_fn(x.contiguous(), token_mask, plist,
                                            num_heads=num_heads,
                                            fast_math=fast_math)

@@ -44,6 +44,16 @@ _SIGNATURES = {
     # eps, q, scale, stream
     "lt_gemm_s8_rows": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P,
                         _P, _F, _P, _P, _P),
+    # x, kmask, rmask, head_gate, h1, params, tp_w, tp_b, nxt_ln_w,
+    # nxt_ln_b, nxt_tp_w, nxt_tp_b, b, l, d, hidden, num_heads, sm_scale,
+    # eps, ln_form, gemm_var, softmax, proj_rows, ws_h1, ws_qkv, ws_attn,
+    # ws_x2, ws_h2, ws_u, out, h1_out, stream
+    "lt_vit_layer": (_P,) * 12 + (_I,) * 5 + (_F, _F) + (_I,) * 4
+    + (_P,) * 9,
+    # x, mask, n, params, policies, b, l, d, hidden, num_heads, sm_scale,
+    # eps, ln_form, gemm_var, softmax, proj_rows, fc2_rows, ws, out, stream
+    "lt_vit_segment": (_P, _P, _I, _P, _P) + (_I,) * 5 + (_F, _F)
+    + (_I,) * 5 + (_P,) * 3,
     # kind, n (what cudaOccupancyMaxActiveClusters returns)
     "lt_gemm_clusters": (_I, _I),
     # qkv, key_mask, head_gate, out, b, l, num_heads, sm_scale, softmax,

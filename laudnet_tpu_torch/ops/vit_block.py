@@ -32,7 +32,9 @@ feature lanes, (B, 1, D); that is a layout of theirs, and the port keeps
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
+import functools
 
 import torch
 
@@ -437,28 +439,64 @@ def _gemm_s8_rows(lib, a, w, n, k, epi, codes, out=None, resid=None,
     return codes
 
 
+@functools.lru_cache(maxsize=64)
+def _layer_workspace(m, d, hidden, segment=False):
+    """Byte offsets of the scratch buffers of `lt_vit_layer` (h1, qkv,
+    attn, x2 in f32, h2, u) and, for `lt_vit_segment`, of two (M, D)
+    bf16 buffers the layers' outputs alternate in and two their h1s
+    alternate in, inside one allocation, each 256-byte aligned; and the
+    allocation's size."""
+    sizes = [m * d * 2, m * 3 * d * 2, m * d * 2, m * d * 4, m * d * 2,
+             m * hidden * 2] + [m * d * 2] * (4 if segment else 0)
+    offsets, total = [], 0
+    for size in sizes:
+        offsets.append(total)
+        total += -(-size // 256) * 256
+    return tuple(offsets), total
+
+
 def _layer_cuda(lib, x, kmask, rmask, p, num_heads, ln_eps, fast_math,
-                policy=None, head_gate=None, variant=None, h1=None, nxt=None,
-                fuse=True):
-    """One bf16 layer. Six launches: LN1 (+ the token gate, updating
-    ``kmask`` in place; B2 passes one buffer as both masks), qkv,
-    attention, proj with LN2 in its epilogue, fc1, fc2. Inside a segment
-    (``nxt``: the next layer's params) fc2's epilogue also computes the
-    next layer's token gate and LN1, and that layer takes them as ``h1``
-    and launches five. Widths the row epilogues do not take (`row_cluster`)
-    and ``fuse=False`` (the launches of earlier builds) run LN2 and LN1 as
-    launches of their own. ``kmask`` and ``rmask`` are contiguous (B, L)
-    f32, ``head_gate`` contiguous (B, H) f32 or None; ``variant`` as
-    `_layer_plain`. Returns (out, the next layer's h1 or None)."""
+                policy=None, head_gate=None, variant=None, fuse=True,
+                stream=None):
+    """One bf16 layer (B1). Six launches: LN1 (+ the token gate of
+    ``policy``, updating ``kmask`` in place), qkv, attention, proj with LN2
+    in its epilogue, fc1, fc2. Widths the row epilogues do not take
+    (`row_cluster`) run LN2 as a launch of its own. One host call,
+    ``lt_vit_layer``, issues the launches into scratch buffers of one
+    allocation (a launch a call from here cost the host about twice as
+    much). ``fuse=False`` runs the seven launches of earlier builds from
+    here, one call each, through the C entry points that earlier builds
+    have too (`tools/compare_b1_build.py` runs another build so).
+    ``kmask`` and ``rmask`` are contiguous (B, L) f32, ``head_gate``
+    contiguous (B, H) f32 or None; ``variant`` as `_layer_plain`;
+    ``stream`` the current stream's handle (looked up if None). Returns
+    the layer's output."""
     from laudnet_tpu_torch.ops._build import check
 
     b, l, d = x.shape
     m = b * l
     hidden = p["fc1"]["weight"].shape[0]
-    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if stream is None:
+        stream = torch.cuda.current_stream(x.device).cuda_stream
     v = variant or (FAST if fast_math else EXACT)
     ln_form, gemm_var, softmax = v.codes()
     bf16 = dict(dtype=torch.bfloat16, device=x.device)
+    if fuse:
+        offsets, size = _layer_workspace(m, d, hidden)
+        base = torch.empty(size, dtype=torch.uint8, device=x.device)
+        out = torch.empty((b, l, d), **bf16)
+        tp = policy or {}
+        params = (ctypes.c_void_p * len(LAYER_KEYS))(
+            *[p[name][kind].data_ptr() for name, kind in LAYER_KEYS])
+        ws = base.data_ptr()
+        check(lib, lib.lt_vit_layer(
+            _ptr(x), _ptr(kmask), _ptr(rmask), _ptr(head_gate), None,
+            ctypes.addressof(params), _ptr(tp.get("weight")),
+            _ptr(tp.get("bias")), None, None, None, None, b, l, d, hidden,
+            num_heads, DH ** -0.5, ln_eps, ln_form, gemm_var, softmax,
+            _proj_rows(d, v), *[ws + o for o in offsets], _ptr(out), None,
+            stream), "layer kernels")
+        return out
 
     def ln(inp, is_f32, w, tp=None, mask=None):
         out = torch.empty((m, d), **bf16)
@@ -472,30 +510,24 @@ def _layer_cuda(lib, x, kmask, rmask, p, num_heads, ln_eps, fast_math,
     def gemm(a, w, n, k, epi, out, resid=None):
         return _gemm(lib, a, w, n, k, epi, out, resid, rmask, gemm_var)
 
-    if h1 is None:
-        h1 = ln(x, 0, p["ln1"], policy, kmask if policy else None)
+    h1 = ln(x, 0, p["ln1"], policy, kmask if policy else None)
     qkv = gemm(h1, p["qkv"], 3 * d, d, EPI_QKV, torch.empty((m, 3 * d), **bf16))
     attn = torch.empty((m, d), **bf16)
     check(lib, lib.lt_attention(_ptr(qkv), _ptr(kmask), _ptr(head_gate),
                                 _ptr(attn), b, l, num_heads, DH ** -0.5,
                                 softmax, stream), "attention kernel")
     x2 = torch.empty((m, d), dtype=torch.float32, device=x.device)
-    wide = v.row_mask and not v.bf16_residual and v.ln != "scale"
-    if fuse and row_cluster(d, wide=wide):
-        h2 = _gemm_rows(lib, attn, p["proj"], d, d, EPI_PROJ, x2,
-                        torch.empty((m, d), **bf16), x, rmask, p["ln2"],
-                        ln_eps, gemm_var, ln_form)[1]
-    else:
-        h2 = ln(gemm(attn, p["proj"], d, d, EPI_PROJ, x2, resid=x), 1,
-                p["ln2"])
+    h2 = ln(gemm(attn, p["proj"], d, d, EPI_PROJ, x2, resid=x), 1, p["ln2"])
     u = gemm(h2, p["fc1"], hidden, d, EPI_FC1, torch.empty((m, hidden), **bf16))
     out = torch.empty((b, l, d), **bf16)
-    if nxt is not None and fuse and row_cluster(d):
-        return _gemm_rows(lib, u, p["fc2"], d, hidden, EPI_FC2, out,
-                          torch.empty((m, d), **bf16), x2, rmask, nxt["ln1"],
-                          ln_eps, gemm_var, ln_form, nxt.get("token_policy"),
-                          kmask, l)
-    return gemm(u, p["fc2"], d, hidden, EPI_FC2, out, resid=x2), None
+    return gemm(u, p["fc2"], d, hidden, EPI_FC2, out, resid=x2)
+
+
+def _proj_rows(d, v):
+    """1 where proj of width ``d`` runs with LN2 in its epilogue for the
+    body ``v`` (a `BlockVariant`), else 0."""
+    wide = v.row_mask and not v.bf16_residual and v.ln != "scale"
+    return int(row_cluster(d, wide=wide) > 0)
 
 
 def _layer_int8_cuda(lib, x, kmask, rmask, p, num_heads, ln_eps,
@@ -633,9 +665,9 @@ def _vit_block_cuda(x, key_mask, row_mask, params, num_heads, head_gate,
     p = unflatten_layer(params)
     _check_cuda(x, (key_mask, row_mask), [p], num_heads, head_gate)
     b, l, _ = x.shape
-    out, _ = _layer_cuda(library(), x, _f32(key_mask.reshape(b, l)),
-                         _f32(row_mask.reshape(b, l)), p, num_heads, ln_eps,
-                         fast_math, head_gate=_f32(head_gate))
+    out = _layer_cuda(library(), x, _f32(key_mask.reshape(b, l)),
+                      _f32(row_mask.reshape(b, l)), p, num_heads, ln_eps,
+                      fast_math, head_gate=_f32(head_gate))
     fused_vit_block.launches += 1
     return out
 
@@ -732,10 +764,9 @@ def fused_vit_block(x, key_mask, row_mask, params, *, num_heads: int,
     if variant.softmax in ("linear", "nomax") and l > MAX_LEN_ABLATION:
         raise ValueError(f"the {variant.softmax!r} softmax ablation takes "
                          f"L <= {MAX_LEN_ABLATION}, got L={l}")
-    out, _ = _layer_cuda(library(), x, _f32(key_mask.reshape(b, l)),
-                         _f32(row_mask.reshape(b, l)), params, num_heads,
-                         ln_eps, fast_math, head_gate=_f32(head_gate),
-                         variant=variant)
+    out = _layer_cuda(library(), x, _f32(key_mask.reshape(b, l)),
+                      _f32(row_mask.reshape(b, l)), params, num_heads, ln_eps,
+                      fast_math, head_gate=_f32(head_gate), variant=variant)
     fused_vit_block.variant_launches += 1
     return out
 
@@ -786,17 +817,48 @@ def fused_vit_segment(x, token_mask, params_list, *, num_heads: int,
 
 def _segment_cuda(lib, x, token_mask, params_list, num_heads, ln_eps,
                   fast_math, fuse=True):
-    """B2's launches on ``lib``: each layer's h1 (with its token gate)
-    comes from the fc2 before it where the row epilogues take the width
-    (`_layer_cuda`). Returns ``(out, token_mask_out)``."""
+    """B2's launches on ``lib``: one host call, ``lt_vit_segment``, issues
+    every layer's (`_layer_cuda`'s) into scratch buffers of one
+    allocation; each layer's h1 (with its token gate) comes from the fc2
+    before it where the row epilogues take the width. ``fuse=False``
+    runs the layers one `_layer_cuda` call each, as earlier builds launch
+    them. Returns ``(out, token_mask_out)``."""
+    from laudnet_tpu_torch.ops._build import check
+
     mask = token_mask.to(torch.float32, copy=True).contiguous()
-    h1 = None
-    for i, p in enumerate(params_list):
-        nxt = params_list[i + 1] if i + 1 < len(params_list) else None
-        x, h1 = _layer_cuda(lib, x, mask, mask, p, num_heads, ln_eps,
-                            fast_math, policy=p.get("token_policy"), h1=h1,
-                            nxt=nxt, fuse=fuse)
-    return x, mask
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if not fuse:
+        for p in params_list:
+            x = _layer_cuda(lib, x, mask, mask, p, num_heads, ln_eps,
+                            fast_math, policy=p.get("token_policy"),
+                            fuse=False, stream=stream)
+        return x, mask
+    if not params_list:
+        return x, mask
+    b, l, d = x.shape
+    m = b * l
+    n = len(params_list)
+    hidden = params_list[0]["fc1"]["weight"].shape[0]
+    v = FAST if fast_math else EXACT
+    ln_form, gemm_var, softmax = v.codes()
+    offsets, size = _layer_workspace(m, d, hidden, segment=True)
+    base = torch.empty(size, dtype=torch.uint8, device=x.device)
+    out = torch.empty((b, l, d), dtype=torch.bfloat16, device=x.device)
+    params = (ctypes.c_void_p * (len(LAYER_KEYS) * n))(
+        *[p[name][kind].data_ptr() for p in params_list
+          for name, kind in LAYER_KEYS])
+    policies = (ctypes.c_void_p * (2 * n))(
+        *[_ptr((p.get("token_policy") or {}).get(kind))
+          for p in params_list for kind in ("weight", "bias")])
+    ws = base.data_ptr()
+    scratch = (ctypes.c_void_p * len(offsets))(*[ws + o for o in offsets])
+    check(lib, lib.lt_vit_segment(
+        _ptr(x), _ptr(mask), n, ctypes.addressof(params),
+        ctypes.addressof(policies), b, l, d, hidden, num_heads, DH ** -0.5,
+        ln_eps, ln_form, gemm_var, softmax, _proj_rows(d, v),
+        int(row_cluster(d) > 0), ctypes.addressof(scratch), _ptr(out),
+        stream), "segment kernels")
+    return out, mask
 
 
 fused_vit_segment.launches = 0

@@ -311,16 +311,16 @@ class H100Predictor:
             if fused_block:
                 # B2 segments (`build_fused_vit`) on the bf16 selection
                 # paths, one wrapper call each, up to 5 layers and cut at
-                # gathers, the token gate eager where one starts and in
-                # the fc2 before it inside; a wrapper call every layer otherwise,
-                # and on the W8A8 engine (no segments) an eager gate too
+                # gathers, the token gate in the first layer's LN1 launch
+                # where no gather starts one and in the fc2 before it
+                # inside; a wrapper call every layer otherwise, and on the
+                # W8A8 engine (no segments) an eager gate too
                 segmented = mode in ("token", "mask") and not int8
                 start = not segmented or gathered or run == 5
                 run = 1 if start else run + 1
                 if start:
                     total = total + SimulationReport(cfg=[dict(op="call")])
-                if mode in ("token", "mask") and not gathered and (
-                        not segmented or start):
+                if mode in ("token", "mask") and not (gathered or segmented):
                     total = total + self.gate(l, dim)
                 if mode == "head":
                     total = total + self.gate(1, dim, 2 * num_heads)

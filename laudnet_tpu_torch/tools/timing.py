@@ -10,6 +10,8 @@ under the previous call's work unless the call is shorter than it.
 
 from __future__ import annotations
 
+import statistics
+
 import torch
 
 
@@ -35,3 +37,17 @@ def chain_times(fn, chain: int = 1, repeats: int = 20,
 def chain_ms(fn, chain: int = 20, repeats: int = 3, warmup: int = 2) -> float:
     """Milliseconds per call of ``fn()``: the best of ``repeats`` chains."""
     return min(chain_times(fn, chain, repeats, warmup))
+
+
+def in_turns(first, second, chain: int = 10, rounds: int = 3,
+             repeats: int = 10, warmup: int = 2):
+    """Readings of two callables timed in rounds of first, second, second,
+    first, so that a slow spell of the host falls on both: a reading is
+    the median of ``repeats`` chains of ``chain`` calls (ms a call).
+    Returns the two lists of readings."""
+    a, b = [], []
+    for _ in range(rounds):
+        for side, fn in ((a, first), (b, second), (b, second), (a, first)):
+            side.append(statistics.median(chain_times(fn, chain, repeats,
+                                                      warmup)))
+    return a, b

@@ -545,11 +545,15 @@ def test_block_variant_kernel_matches_plain(card, mode):
 # The GEMM core, one product at a time: (M, K of qkv/proj/fc1, hidden) --
 # DeiT-S and T2T-ViT-19 widths at an M that is no multiple of the 128-row
 # tile, B2's L = 98 segments at bs128, a hidden of 208 (16-byte rows, no
-# multiple of 32), and DeiT-S at the serving M (bs128, L = 197).
+# multiple of 32), DeiT-S at the serving M (bs128, L = 197), and DeiT-B's
+# width (D = 768, hidden 3,072: no row epilogue takes it) at M = 1000 and
+# at B2's L = 98.
 GEMM_GEOMS = {"deit_m1000": (1000, 384, 1536), "t2t_m1000": (1000, 448, 1344),
               "deit_b2_l98": (128 * 98, 384, 1536),
               "hidden208_m300": (300, 192, 208),
-              "deit_serving": (128 * 197, 384, 1536)}
+              "deit_serving": (128 * 197, 384, 1536),
+              "deitb_m1000": (1000, 768, 3072),
+              "deitb_b2_l98": (128 * 98, 768, 3072)}
 
 
 def _gemm_case(g, geom, epilogue, s8, dev):
@@ -764,16 +768,19 @@ def _kernel_launches(fn):
 
 
 # B1, B2 (3 layers) and B6 at widths the clusters take (DeiT-S, T2T-ViT-19)
-# and at a width they do not (D = 192, hidden 208: the separate launches)
+# and at widths they do not (D = 192, hidden 208, and DeiT-B's D = 768,
+# hidden 3,072: the separate launches)
 LAYER_GEOMS = {"deit": (384, 6, 1536, 64), "t2t": (448, 7, 1344, 40),
-               "narrow": (192, 3, 208, 50)}
+               "narrow": (192, 3, 208, 50), "deit_b": (768, 12, 3072, 50)}
 
 
 @pytest.mark.parametrize("fast_math", [False, True])
 @pytest.mark.parametrize("geom", sorted(LAYER_GEOMS))
 def test_layers_match_plain_and_launch_as_designed(card, geom, fast_math):
     d, heads, hidden, l = LAYER_GEOMS[geom]
-    fused = geom != "narrow"
+    fused = vit_block.row_cluster(d) > 0
+    fused_fc1 = vit_block.row_cluster(hidden, wide=False, fc1=True) > 0
+    assert fused == fused_fc1 == (geom in ("deit", "t2t"))
     g = torch.Generator().manual_seed(d + fast_math)
     b = 4
     p = _layer(g, d, hidden, card)
@@ -953,3 +960,35 @@ def test_regnet_forward_runs_without_a_host_sync(card, dtype):
             torch.cuda.set_sync_debug_mode(0)
     assert out.logits.shape == (2, 10)
     assert torch.isfinite(out.logits.float()).all()
+
+
+def test_probe_segments_forms_launch_as_checked(card):
+    """The segment probe's checked forwards
+    (`tools/probe_segments.py::check_forms`) on the card at a small
+    geometry, default mode and sweep: every ``seg`` form launches B2 once
+    for each segment the engine planned and no B1, every ``blk`` form one
+    B1 a layer and no B2, and ``seg`` logits are within 4 bf16 ulps of the
+    ``blk`` form's largest logit for each segment (`check_forms` raises
+    otherwise)."""
+    from laudnet_tpu_torch.models import LAUDViT
+    from laudnet_tpu_torch.tools import probe_segments as probe
+
+    geom = dict(depth=4, dim=128, num_heads=2, img_size=32, patch_size=8,
+                device=card)
+    off = dict(token_skip=False, head_skip=False, layer_skip=False)
+    models = {name: LAUDViT(**geom, **kw, generator=torch.Generator(
+        card).manual_seed(seed)).to(torch.bfloat16).eval()
+        for seed, (name, kw) in enumerate((("plain_s", off), ("laud_s", {}),
+                                           ("plain_b", off)))}
+    images = torch.randn(4, 32, 32, 3, generator=torch.Generator(
+        ).manual_seed(0)).to(card, torch.bfloat16)
+    blk_forms = probe.build_forms(models)
+    for sweep in (False, True):
+        readings = probe.check_forms(probe.build_forms(models, sweep=sweep),
+                                     images, blk_forms)
+        for key, r in readings.items():
+            if "_seg" in key:
+                assert r["launches"]["segment"] == len(r["segments"]) > 0
+                assert r["max_diff"] <= r["bound"]
+            else:
+                assert r["launches"] == {"segment": 0, "block": 4}

@@ -53,7 +53,8 @@ def test_every_module_imports_without_jax():
                 "infer.calibrate", "infer.export_pruned",
                 "infer.layerskip", "infer.engine", "tools.timing",
                 "tools.probe_int8", "tools.probe_block_budget",
-                "tools.probe_host"):
+                "tools.probe_host", "tools.probe_segments",
+                "tools.compare_with_torch"):
         assert f"laudnet_tpu_torch.{new}" in names
 
 
