@@ -54,13 +54,22 @@ each raising on failure:
    plain attention (metrics and the gradients that B5 feeds); 2 f32 steps
    (``--vit_attn fused`` without ``--amp``) through the CLI, the first
    held to the plain attention; and step time, img/s, peak memory and
-   B4's and B5's share of a step;
+   B4's and B5's share of a step; then QAT (``--vit_linear int8_qat``): 2
+   steps and the W8A8 validation through the CLI, 8 steps on a repeated
+   batch (each step's ms, the loss falling, kernel ms, idle share, peak
+   memory, B4/B5 launches), and `fake_quant_linear` against `int8_linear`
+   at DeiT-S's four products (bs128, L=197), f32 with TF32 off, within
+   the summation bound of `tools/qat_fidelity.py`, the bf16 distance
+   beside it;
 7. CNN serving: the masked forwards (flagship f32 and bf16, channel and
    layer mode) under ``torch.cuda.set_sync_debug_mode("error")``; the
    flagship LAUD-ResNet-50 (`entry()`, then bs128 bf16
    dense-masked, sparse, W8A8, the f32 masks against the CPU's, B3 on one
    stride-1 block per stage);
-8. CNN training: ``train.main.main(--arch uni_resnet50 --amp)``;
+8. CNN training: ``train.main.main(--arch uni_resnet50 --amp)``; then QAT
+   (``--conv_impl int8_qat``) as in phase 6, and ``QuantConv(fake=True)``
+   against ``fake=False`` at the flagship's stride-1 conv2 and conv3 of
+   each stage (bs128);
 9. the probes, short: P1 (`tools/probe_block_budget.py`, the ``full`` and
    ``fast_tanh`` bodies) and P2 with every s8 rate
    (`tools/probe_int8.py --quick`); phase 3 also holds P1 (each carried
@@ -129,7 +138,10 @@ each raising on failure:
     dp and fsdp legs again on a dp2 x tp1 mesh, so the data group's
     exchanges run across the two ranks (the fsdp one where the probe's
     whole FSDP2 step passes); each leg held to one process on the whole
-    batch, PARALLEL_BOUNDS);
+    batch, PARALLEL_BOUNDS); then, in two processes of this script on
+    dp1 x tp2 through the port's API (`tp_leg_rank`), a DeiT-S
+    ``--vit_linear int8_qat`` step and the f32 flagship at eval in sparse
+    execution and W8A8, each against the same run in one process;
 16. the CNN detectors (`laudnet_tpu_torch/detection/`, no port kernel on
     their path, which the phase asserts): an ImageNet-format LAUD-R101
     file and a COCO-format directory written first; (a) the CLI's
@@ -184,7 +196,9 @@ and 10, ``python3 chip_smoke.py regnet`` phases 1-2 and 11-13,
 ``python3 chip_smoke.py data`` phases 1-2 and 14, ``python3 chip_smoke.py
 parallel`` phases 1-2 and 15, ``python3 chip_smoke.py detection`` phases
 1-2 and 16, ``python3 chip_smoke.py detr`` phases 1-2 and 17, ``python3
-chip_smoke.py tools`` phases 1-2 and 18, ``python3 chip_smoke.py host``
+chip_smoke.py tools`` phases 1-2 and 18, ``python3 chip_smoke.py qat``
+phases 1-2, the QAT legs of phases 6 and 8 and phase 15's tp2 legs (with
+the probe of their collectives), ``python3 chip_smoke.py host``
 phases 1-2, phase 10's DeiT-S forms (each one's issue time on the host
 beside its run time on the card) and the launch costs of
 `tools/probe_host.py`, and
@@ -224,6 +238,7 @@ from laudnet_tpu_torch.tools import (compare_with_torch, probe_block_budget,
                                      serve_artifact)
 # B3's five shapes (name, B, H = W, C, Co, patch, mask density, capacities),
 # their inputs and its kernels' device time, as the build comparison has them
+from laudnet_tpu_torch.tools.probe_dist import COLLECTIVES, trials
 from laudnet_tpu_torch.tools.compare_b3_build import SHAPES as TAIL_SHAPES
 from laudnet_tpu_torch.tools.compare_b3_build import device as b3_device
 from laudnet_tpu_torch.tools.compare_b3_build import inputs as tail_inputs
@@ -1607,6 +1622,102 @@ def qkv_grads(model):
     return torch.cat([blk.qkv.weight.grad.flatten() for blk in model.blocks])
 
 
+# QAT (``--vit_linear int8_qat``, ``--conv_impl int8_qat``): QAT_STEPS steps
+# and the validation (its W8A8 products) through the CLI, then TRAIN_STEPS
+# on one repeated batch, whose loss must fall.
+QAT_STEPS = 2
+QAT_ARGV = TRAIN_ARGV + ["--vit_linear", "int8_qat"]
+
+
+def qat_leg(tag, cli_argv, repeat_argv, card, attention=True):
+    """A QAT leg of phases 6 and 8: ``cli_argv`` through
+    ``train.main.main`` (QAT_STEPS steps, then the validation), then the
+    trainer of ``repeat_argv`` on one repeated batch: each step's ms and
+    loss parts, the loss falling, and two steps profiled (kernel ms, idle
+    share), with peak memory and, for the ViT (``attention``), B4's and
+    B5's launches a step."""
+    from laudnet_tpu_torch.train import main as train_main
+
+    with tempfile.TemporaryDirectory() as out_dir:
+        t = time.perf_counter()
+        best, delta = counted(lambda: train_main.main(
+            cli_argv + ["--train_url", out_dir]))
+        secs = time.perf_counter() - t
+        with open(f"{out_dir}/log.txt") as f:
+            header, row = (line.strip().split(",") for line in f.readlines())
+        log = open(f"{out_dir}/train.log").read()
+    n_b4, n_b5 = delta["fused_vit_attention"], delta["fused_vit_attention_bwd"]
+    print(f"{tag}: train.main {QAT_STEPS} steps and the W8A8 validation in "
+          f"{secs:.1f} s; best top1 {best:.4f}; B4 {n_b4}, B5 {n_b5}; "
+          f"log.txt {dict(zip(header, row))}")
+    if not all(math.isfinite(float(v)) for v in row) or "nan" in log:
+        raise AssertionError(f"{tag}: a metric is not finite")
+    if attention and (n_b4 != 24 * QAT_STEPS + 24
+                      or n_b5 != 12 * QAT_STEPS):
+        raise AssertionError(f"{tag}: expected {24 * QAT_STEPS + 24} B4 and "
+                             f"{12 * QAT_STEPS} B5 launches")
+
+    tr = train_main.build_training(train_main.parse_args(repeat_argv),
+                                   lambda *a, **k: None)
+    images, labels = next(train_main.synthetic_batches(B, IMG, 1000, 1,
+                                                       seed=0))
+    x, y = tr.to_device(images, labels)
+    torch.cuda.reset_peak_memory_stats()
+
+    def steps():
+        out = []
+        for _ in range(TRAIN_STEPS):
+            t = time.perf_counter()
+            m = {k: float(v) for k, v in tr.train_step(tr.state, x,
+                                                        y).items()}
+            out.append(((time.perf_counter() - t) * 1e3, m))
+        return out
+
+    rows, delta = counted(steps)
+    peak = torch.cuda.max_memory_allocated()
+    for i, (ms, m) in enumerate(rows):
+        print(f"{tag} step {i}: {ms:.4f} ms; " + ", ".join(
+            f"{k} {m[k]:.6g}" for k in LOSS_PARTS + ("act_rate", "top1")))
+        if not all(math.isfinite(m[k]) for k in LOSS_PARTS):
+            raise AssertionError(f"{tag} step {i}: a loss part is not finite")
+    if not rows[-1][1]["loss"] < rows[0][1]["loss"]:
+        raise AssertionError(f"{tag}: the loss did not fall on a repeated "
+                             f"batch: {rows[0][1]['loss']} -> "
+                             f"{rows[-1][1]['loss']}")
+    ms = statistics.median(r[0] for r in rows[1:])
+    busy, launches = device_busy_ms(lambda: tr.train_step(tr.state, x, y), 2)
+    per = {k: delta[k] / TRAIN_STEPS for k in ("fused_vit_attention",
+                                              "fused_vit_attention_bwd")}
+    print(f"{tag} step (bs{B}): {ms:.4f} ms (median of steps 1-"
+          f"{TRAIN_STEPS - 1}), {B / (ms / 1e3):.1f} img/s; {busy:.4f} ms of "
+          f"kernels, idle share {max(0.0, 1 - busy / ms):.4f}, "
+          f"{launches:.0f} launches; peak memory {peak / 2 ** 30:.4f} GiB"
+          + (f"; B4 {per['fused_vit_attention']:.0f} and B5 "
+             f"{per['fused_vit_attention_bwd']:.0f} launches a step"
+             if attention else "") + f" [{card}]")
+    if attention and (per["fused_vit_attention"] != 24
+                      or per["fused_vit_attention_bwd"] != 12):
+        raise AssertionError(f"{tag}: launches a step {per}")
+
+
+def fake_against_w8a8(tag, cases, gap, card):
+    """Each ``(name, args)`` of ``cases`` through ``gap``
+    (`tools/qat_fidelity.py`: the fake-quant product against the W8A8 one,
+    f32 with TF32 off, held to its summation bound; the bf16 distance
+    beside it)."""
+    worst = 0.0
+    for name, args in cases:
+        r = gap(*args)
+        worst = max(worst, r["ratio"])
+        print(f"{tag} {name}: fake-quant vs W8A8 in f32 {r['max_abs']:.4g} "
+              f"at most, {r['ratio']:.4g} of the summation bound (K = "
+              f"{r['k']}); in bf16 {r['bf16_rel']:.4g} of the W8A8 output's "
+              f"norm [{card}]")
+    if not worst <= 1.0:
+        raise AssertionError(f"{tag}: fake-quant off the W8A8 product by "
+                             f"{worst:.4g} of the bound")
+
+
 def phase_train(dev, card):
     from torch.profiler import ProfilerActivity, profile
 
@@ -1780,6 +1891,30 @@ def phase_train(dev, card):
     for e in events[:14]:
         print(f"  {e.device_time_total / steps / 1e3:9.4f} ms "
               f"x{e.count // steps:<4d} {e.key[:100]}")
+    del tr, x, y
+    phase_vit_qat(dev, card)
+
+
+def phase_vit_qat(dev, card):
+    """Phase 6's QAT leg (``--vit_linear int8_qat`` through B4 and B5) and
+    the fake-quant products against W8A8 at DeiT-S's four (bs128,
+    L=197)."""
+    t = time.perf_counter()
+    cli = [a for a in QAT_ARGV]
+    cli[cli.index("--steps_per_epoch") + 1] = str(QAT_STEPS)
+    qat_leg("ViT QAT", cli, QAT_ARGV, card)
+    from laudnet_tpu_torch.tools.qat_fidelity import linear_gap
+
+    g = torch.Generator(dev).manual_seed(31)
+    d, hidden = DEIT["d"], DEIT["hidden"]
+    cases = []
+    for name, k, n in (("qkv", d, 3 * d), ("proj", d, d),
+                       ("fc1", d, hidden), ("fc2", hidden, d)):
+        x = torch.randn(B * L_FULL, k, generator=g, device=dev)
+        w = torch.randn(n, k, generator=g, device=dev) * k ** -0.5
+        cases.append((name, (x, w)))
+    fake_against_w8a8("DeiT-S", cases, linear_gap, card)
+    print(f"ViT QAT leg in {time.perf_counter() - t:.1f} s")
 
 
 def phase_profile(dev, card, forwards=5, rows=22):
@@ -2210,6 +2345,30 @@ def phase_cnn_train(dev, card):
           f"kernels, idle share {max(0.0, 1 - dbusy / dms):.4f}, "
           f"{dlaunches:.0f} launches; peak memory {dpeak / 2 ** 30:.4f} GiB; "
           f"the LAUD step is {ms / dms:.4f}x as long [{card}]")
+    del dense, opt
+    phase_cnn_qat(dev, card)
+
+
+def phase_cnn_qat(dev, card):
+    """Phase 8's QAT leg (``--conv_impl int8_qat``) and ``QuantConv(fake=
+    True)`` against W8A8 at the flagship's stride-1 conv2 and conv3 of
+    each stage (the B3 shapes' batch, H, width and output channels)."""
+    t = time.perf_counter()
+    qat = ["--conv_impl", "int8_qat"]
+    qat_leg("CNN QAT", CNN_TRAIN_ARGV + [str(QAT_STEPS)] + qat,
+            CNN_REPEAT_ARGV + qat, card, attention=False)
+    from laudnet_tpu_torch.ops.quant import QuantConv
+    from laudnet_tpu_torch.tools.qat_fidelity import conv_gap
+
+    g = torch.Generator(dev).manual_seed(32)
+    cases = []
+    for name, b, hw, c, co, *_ in TAIL_SHAPES[1:]:
+        x = torch.relu(torch.randn(b, hw, hw, c, generator=g, device=dev))
+        for conv in (QuantConv(c, c, 3, padding=1, device=dev),
+                     QuantConv(c, co, 1, device=dev)):
+            cases.append((f"{name} {tuple(conv.weight.shape)}", (conv, x)))
+    fake_against_w8a8("flagship", cases, conv_gap, card)
+    print(f"CNN QAT leg in {time.perf_counter() - t:.1f} s")
 
 
 # --- the probes (P1, P2) and the serving engine --------------------------------
@@ -3368,6 +3527,9 @@ PARALLEL_BOUNDS = {"dp": TRAIN_REL, "tp": REL_ERR_MAX, "sp": REL_ERR_MAX,
 # The collectives each two-process leg runs (`parallel/`): the step-0 probe
 # (`tools/probe_dist.py`) says which gloo takes on CUDA tensors; a leg that
 # needs one it refuses is not run and waits for a machine with two cards.
+# The dry run's legs, then the tensor-parallel forms of `tp_leg_rank`: the
+# quantised products' scales take a MAX all-reduce and W8A8 sums its codes
+# in int32.
 LEG_COLLECTIVES = {
     "dp": ("all_reduce", "all_gather", "broadcast"),
     "tp": ("all_reduce", "all_gather", "broadcast"),
@@ -3375,7 +3537,186 @@ LEG_COLLECTIVES = {
     "fsdp": ("all_reduce", "all_gather", "broadcast",
              "all_gather_into_tensor", "reduce_scatter_tensor"),
     "pp": ("all_reduce", "all_gather", "broadcast", "send_recv"),
+    "tp_qat": ("all_reduce", "all_gather", "all_reduce_max"),
+    "tp_sparse": ("all_reduce", "all_gather"),
+    "tp_w8a8": ("all_reduce", "all_gather", "all_reduce_max",
+                "all_reduce_int32"),
 }
+# The tensor-parallel legs on dp1 x tp2, each against the same thing in one
+# process. The DeiT-S QAT step in f32 (B4/B5 in f32) with head and layer
+# gates, as phase 6's f32 step (with token gates a kept token's
+# straight-through residue adds a key-mask offset of tens on the last bit
+# of a soft gate): its loss parts and block 0's fc2 update. No fixed bound
+# holds them: the split sums round in another order, a value that sits
+# that close to a code's rounding tie takes the next code, which moves its
+# row's output by a share of a code step, which moves far more values of
+# the next product across their ties, and so on down the layers (on an
+# H100 80GB HBM3 at 700 W the f32 step's fc2 update came out 3.4e-2 apart,
+# the bf16 step's 3.9e-2). So the
+# step is held to the noise of the arithmetic itself: the same one-process
+# step on the batch scaled by 1 + TP_QAT_NUDGE (a few ulps of each pixel)
+# gives the floor, and the tp2 step may be no further than TP_QAT_FLOOR
+# times it. A layout fault (a rank's scale, a partial sum left out) moves
+# every code of a product and lands far outside. Then the f32 flagship at
+# eval in sparse execution and W8A8 at TP_BATCH (TF32 off: sparse differs
+# by the f32 order of conv3's split sums, W8A8 sums its codes exactly; both
+# split the classifier's classes, whose f32 products cuBLAS orders
+# otherwise at the narrower width): SPARSE_F32_REL.
+TP_QAT_ARGV = [a for a in QAT_ARGV if a != "--amp"] + ["--vit_skip",
+                                                       "head,layer"]
+TP_QAT_NUDGE, TP_QAT_FLOOR = 2.0 ** -20, 3.0
+TP_BATCH = 32
+TP_LEGS = ("tp_qat", "tp_sparse", "tp_w8a8")
+TP_FLAGSHIP = {"tp_sparse": dict(execution="sparse"),
+               "tp_w8a8": dict(conv_impl="int8")}
+
+
+def qat_first_step(rank=0, n=1, tp=1, scale=1.0):
+    """The f32 DeiT-S QAT training (``TP_QAT_ARGV``, ``--tp tp``) in a
+    group of ``n`` processes: its first step on this process's rows of the
+    seed-0 batch times ``scale``, the step's metrics, block 0's fc2 update
+    (gathered whole) and B4's and B5's launches."""
+    from laudnet_tpu_torch.parallel.tp import gather_shards
+    from laudnet_tpu_torch.train import main as train_main
+
+    tr = train_main.build_training(train_main.parse_args(
+        TP_QAT_ARGV + ["--tp", str(tp)]), lambda *a, **k: None)
+    fc2 = tr.model.blocks[0].fc2
+    spec = getattr(tr.model, "tp_specs", {}).get("blocks.0.fc2.weight")
+    full = lambda: (fc2.weight.detach().float().clone() if tp == 1
+                    else gather_shards(fc2.weight.detach().float(), spec.dim,
+                                       tr.model.tp.group))
+    images, labels = next(train_main.synthetic_batches(B, IMG, 1000, 1,
+                                                       seed=0))
+    rows = slice(rank * B // n, (rank + 1) * B // n)
+    before = full()
+    x, y = tr.to_device(images[rows] * np.float32(scale), labels[rows])
+    m, delta = counted(lambda: tr.train_step(tr.state, x, y),
+                       main_path=False)
+    return ({k: float(v) for k, v in m.items()}, (full() - before).cpu(),
+            (delta["fused_vit_attention"], delta["fused_vit_attention_bwd"]))
+
+
+def tp_flagship(dev, leg, mesh=None):
+    """The f32 flagship of ``leg`` (eval, seed 0; laid out over ``mesh``'s
+    model dim where given) on TP_BATCH seeded images: its output."""
+    from laudnet_tpu_torch.parallel import shard_params
+
+    model = flagship(dev, **TP_FLAGSHIP[leg]).eval()
+    if mesh is not None:
+        shard_params(model, mesh)
+    x = torch.randn(TP_BATCH, IMG, IMG, 3, device=dev,
+                    generator=torch.Generator(dev).manual_seed(23))
+    with torch.no_grad():
+        out = model(x, 0.1, training=False)
+    torch.cuda.synchronize()
+    return out
+
+
+def tp_leg_rank(rank, port, out_path, legs):
+    """One of the two processes of phase 15's tensor-parallel legs (``python
+    chip_smoke.py tp-rank RANK PORT OUT LEGS``): joins a gloo group of two
+    (rank r on card r modulo the cards), runs ``legs`` (comma-separated) on
+    a dp1 x tp2 mesh and, on rank 0, saves what they gave to
+    ``out_path``."""
+    import torch.distributed as dist
+
+    from laudnet_tpu_torch.parallel import initialize_distributed, make_mesh
+
+    rank, legs = int(rank), legs.split(",")
+    dev = initialize_distributed(f"127.0.0.1:{port}", 2, rank,
+                                 device="cuda", backend="gloo")
+    got = {}
+    if "tp_qat" in legs:
+        got["tp_qat"] = qat_first_step(rank, 2, tp=2)
+    for leg in legs:
+        if leg in TP_FLAGSHIP:
+            out = tp_flagship(dev, leg, make_mesh(model_parallel=2,
+                                                  device=dev))
+            got[leg] = (out.logits.cpu(), out.flops_perc.cpu())
+    if rank == 0:
+        torch.save(got, out_path)
+    dist.destroy_process_group()
+
+
+def tp_legs(dev, legs, card):
+    """Phase 15's tensor-parallel ``legs`` in two processes on the card
+    (`tp_leg_rank`), each against the same thing run here, in one process,
+    while they run; raises where one is outside its bound."""
+    t = time.perf_counter()
+    from laudnet_tpu_torch.parallel.mesh import free_port
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out_path, port = f"{tmp}/tp_legs.pt", free_port()
+        here = os.path.dirname(os.path.abspath(__file__))
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            p for p in (here, os.environ.get("PYTHONPATH")) if p))
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "tp-rank", str(r),
+             str(port), out_path, ",".join(legs)], env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(2)]
+        try:
+            ref = {}
+            if "tp_qat" in legs:
+                ref["tp_qat"] = qat_first_step()
+                ref["floor"] = qat_first_step(scale=1 + TP_QAT_NUDGE)
+            for leg in legs:
+                if leg in TP_FLAGSHIP:
+                    out = tp_flagship(dev, leg)
+                    ref[leg] = (out.logits.cpu(), out.flops_perc.cpu())
+                    del out
+            outs = [p.communicate(timeout=600)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        if any(p.returncode for p in procs):
+            raise AssertionError(
+                "parallel: a tensor-parallel rank failed:\n"
+                + "\n".join(o[-4000:] for o in outs))
+        got = torch.load(out_path, weights_only=False)
+    failed = []
+    if "tp_qat" in legs:
+        (m1, upd1, _) = ref["tp_qat"]
+
+        def apart(m, upd):
+            return (max(abs(m[k] - m1[k]) / abs(m1[k]) for k in LOSS_PARTS),
+                    ((upd - upd1).norm() / upd1.norm()).item())
+
+        (m, upd, (b4, b5)) = got["tp_qat"]
+        worst, step_rel = apart(m, upd)
+        floor = apart(*ref["floor"][:2])
+        bound = [max(TP_QAT_FLOOR * f, 1e-6) for f in floor]
+        print(f"parallel: tp2 DeiT-S --vit_linear int8_qat f32 step vs one "
+              f"process: " + ", ".join(f"{k} {m[k]:.8g} / {m1[k]:.8g}"
+                                       for k in LOSS_PARTS)
+              + f"; loss parts {worst:.4g} apart at most, block 0's fc2 "
+              f"update {step_rel:.4g} of its norm; the one-process step on "
+              f"the batch times 1 + 2^-20: {floor[0]:.4g} and {floor[1]:.4g} "
+              f"(bounds {TP_QAT_FLOOR} x those); B4 {b4}, B5 {b5} launches "
+              f"on rank 0 [{card}]")
+        if not (worst <= bound[0] and step_rel <= bound[1]
+                and b4 == 24 and b5 == 12):
+            failed.append("tp_qat")
+    for leg in legs:
+        if leg in TP_FLAGSHIP:
+            (logits, fp), (logits1, fp1) = got[leg], ref[leg]
+            rel = ((logits - logits1).norm() / logits1.norm()).item()
+            print(f"parallel: tp2 flagship {TP_FLAGSHIP[leg]} f32 bs"
+                  f"{TP_BATCH} eval vs one process: logits "
+                  + ("bit for bit" if rel == 0 else f"{rel:.4g} apart")
+                  + f" (bound {SPARSE_F32_REL}); flops_perc "
+                  f"{fp.mean().item():.6f} / {fp1.mean().item():.6f} "
+                  f"[{card}]")
+            if not (rel <= SPARSE_F32_REL and torch.isfinite(logits).all()):
+                failed.append(leg)
+    print(f"parallel: tensor-parallel legs {list(legs)} in "
+          f"{time.perf_counter() - t:.1f} s")
+    if failed:
+        raise AssertionError(f"parallel: tp2 legs {failed} disagree with "
+                             "one process")
 
 
 def phase_parallel(dev, card):
@@ -3384,6 +3725,7 @@ def phase_parallel(dev, card):
     local heads of tp = 2, 3, 6; two processes on the card over gloo."""
     import torch.distributed as dist
 
+    from laudnet_tpu_torch.entry import LEGS as DRYRUN_LEGS
     from laudnet_tpu_torch.entry import dryrun_multichip
     from laudnet_tpu_torch.ops.vit_attention import (
         fused_vit_attention, reference_vit_attention,
@@ -3392,8 +3734,7 @@ def phase_parallel(dev, card):
     from laudnet_tpu_torch.parallel.mesh import free_port
     from laudnet_tpu_torch.parallel.tp import (ModelParallel, local_shard,
                                                tp_fused_vit_attention)
-    from laudnet_tpu_torch.tools.probe_dist import (COLLECTIVES, FSDP_TRIALS,
-                                                    trials)
+    from laudnet_tpu_torch.tools.probe_dist import FSDP_TRIALS
     from laudnet_tpu_torch.train import main as train_main
 
     t0 = time.perf_counter()
@@ -3575,6 +3916,8 @@ def phase_parallel(dev, card):
         print(f"parallel: the dp2 x tp1 fsdp leg waits for a machine with "
               f"two cards: FSDP2's step over gloo on CUDA tensors "
               f"{probe['fsdp2_step']}")
+    tp_only = tuple(leg for leg in legs if leg in TP_LEGS)
+    legs = tuple(leg for leg in legs if leg in DRYRUN_LEGS)
     for model_par, which in ((2, legs), (1, dp2_legs)):
         if not which:
             continue
@@ -3590,6 +3933,8 @@ def phase_parallel(dev, card):
                 raise AssertionError(f"parallel: leg {leg} (dp"
                                      f"{2 // model_par} x tp{model_par}) is "
                                      f"{v} from one process")
+    if tp_only:
+        tp_legs(dev, tp_only, card)
     dist.destroy_process_group()
     print(f"parallel: phase 15 in {time.perf_counter() - t0:.1f} s [{card}]")
 
@@ -4634,6 +4979,20 @@ def main():
         print(f"data phase passed in {time.perf_counter() - t0:.1f} s "
               f"[{card}]")
         return
+    if sys.argv[1:] == ["qat"]:
+        phase_vit_qat(dev, card)
+        phase_cnn_qat(dev, card)
+        probe = trials("gloo", COLLECTIVES)
+        legs = tuple(leg for leg in TP_LEGS if all(
+            probe[n] == "ok" for n in LEG_COLLECTIVES[leg]))
+        print(f"parallel: gloo on CUDA tensors: {probe}; the legs that "
+              f"wait for a machine with two cards: "
+              f"{[leg for leg in TP_LEGS if leg not in legs]}")
+        if legs:
+            tp_legs(dev, legs, card)
+        print(f"QAT legs passed in {time.perf_counter() - t0:.1f} s "
+              f"[{card}]")
+        return
     if sys.argv[1:] == ["parallel"]:
         phase_parallel(dev, card)
         print(f"parallel phase passed in {time.perf_counter() - t0:.1f} s "
@@ -4737,4 +5096,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["tp-rank"]:
+        tp_leg_rank(*sys.argv[2:])
+    else:
+        main()

@@ -55,11 +55,11 @@ SECONDS = {
     "test_quant_resnet.py": 267,
     "test_detection.py": 192,
     "test_fused_vit_block.py": 183,
-    "test_torch_parallel_cli.py": 183,
     "test_torch_detection_train.py": 183,
     "test_laud_vit.py": 156,
     "test_amp.py": 146,
     "test_tp_pp.py": 144,
+    "test_torch_parallel_cli.py": 142,
     "test_torch_detection.py": 140,
     "test_laud_resnet.py": 130,
     "test_torch_detection_cli.py": 126,
@@ -77,7 +77,7 @@ SECONDS = {
     "test_torch_detr_train.py": 85,
     "test_torch_train_cli.py": 83,
     "test_rect_detection.py": 76,
-    "test_torch_parallel.py": 73,
+    "test_torch_parallel.py": 75,
     "test_torch_vit_attention.py": 54,
     "test_sim.py": 52,
     "test_torch_quant.py": 52,

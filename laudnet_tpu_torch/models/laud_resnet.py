@@ -114,19 +114,25 @@ def make_conv(conv_impl: str, cin: int, cout: int, kernel: int,
 
 
 def conv_nhwc(m: nn.Conv2d, x: torch.Tensor, cd, *, quant: bool = False,
-              fake: bool = False, padding: Optional[int] = None):
+              fake: bool = False, padding: Optional[int] = None, tp=None,
+              row_parallel: bool = False):
     """Applies conv module ``m`` to NHWC ``x``: W8A8 (or, with ``fake``,
     fake-quant) where ``quant`` asks for it, else a float convolution in
-    the compute dtype ``cd`` (the promoted dtype when None)."""
+    the compute dtype ``cd`` (the promoted dtype when None). ``tp`` (a
+    `ModelParallel`) says that ``x``'s channels are split over the model
+    group: ``row_parallel`` (conv3) reduces the partial sums, else the
+    convolution is a grouped conv2 split by whole groups; the quantised
+    forms take their scales over the whole input (`ops/quant.py`)."""
     if quant:
-        return m(x, fake=fake, padding=padding)
+        return m(x, fake=fake, padding=padding, tp=tp,
+                 row_parallel=row_parallel)
     w = m.weight
     if cd is not None:
         x, w = x.to(cd), w.to(cd)
     pad = m.padding if padding is None else padding
     y = F.conv2d(x.permute(0, 3, 1, 2), w, None, m.stride, pad, m.dilation,
-                 m.groups)
-    return y.permute(0, 2, 3, 1)
+                 m.groups).permute(0, 2, 3, 1)
+    return reduce_from_model_parallel(y, tp) if row_parallel else y
 
 
 def max_pool_nhwc(x: torch.Tensor) -> torch.Tensor:
@@ -204,8 +210,10 @@ class LAUDBottleneck(nn.Module):
                                              1, stride, **kw)
             self.downsample_bn = BatchNorm(out_planes, **kw)
         # tensor parallelism (`parallel/tp.py::shard_params`): conv2 and
-        # bn2 hold this rank's channels, conv3 its input channels
+        # bn2 hold this rank's channels, conv3 its input channels; a
+        # grouped conv2 holds whole groups and takes their input channels
         self.tp = None
+        self.tp_grouped = False
 
     def set_output_size(self, output_size) -> None:
         """Points the block at an output resolution (an int, or ``(h, w)``)
@@ -244,8 +252,8 @@ class LAUDBottleneck(nn.Module):
         out_h, out_w = self.out_h, self.out_w
         quant = quantised(self.conv_impl, training)
         fake = self.conv_impl == "int8_qat" and training
-        conv = lambda m, t, padding=None: conv_nhwc(
-            m, t, cd, quant=quant, fake=fake, padding=padding)
+        conv = lambda m, t, padding=None, **tp: conv_nhwc(
+            m, t, cd, quant=quant, fake=fake, padding=padding, **tp)
         frozen = (not training) or self.bn_eval
         bn = lambda m, t: m(t, use_running_average=frozen, compute_dtype=cd)
 
@@ -330,9 +338,8 @@ class LAUDBottleneck(nn.Module):
             g = sp.gather_patches(x1, idx, patch, halo=1)
             b_, k_, ph, pw, cg = g.shape
             gflat = g.reshape(b_ * k_, ph, pw, cg)
-            gflat = torch.relu(bn(self.bn2,
-                                  conv(self.conv2, gflat, padding=0)))
-            gflat = bn(self.bn3, conv(self.conv3, gflat))
+            gflat = torch.relu(bn(self.bn2, self._conv2(conv, gflat, 0)))
+            gflat = bn(self.bn3, self._conv3(conv, gflat))
             patches = gflat.reshape(b_, k_, patch, patch, out_planes)
             out = sp.scatter_patches_add(identity, patches, idx, valid,
                                          patch)
@@ -342,9 +349,7 @@ class LAUDBottleneck(nn.Module):
             if channel_mask is not None:
                 out = masking.apply_channel_mask(out, channel_mask)
             out = torch.relu(bn(self.bn1, out))
-            if mp is not None:  # column-parallel conv2: this rank's channels
-                out = copy_to_model_parallel(out, mp)
-            out = conv(self.conv2, out)
+            out = self._conv2(conv, out)
             if channel_mask is not None:
                 mask2 = channel_mask
                 if mp is not None:  # the gates of this rank's channels
@@ -353,10 +358,7 @@ class LAUDBottleneck(nn.Module):
                                                 dim=-1), mp)
                 out = masking.apply_channel_mask(out, mask2)
             out = torch.relu(bn(self.bn2, out))
-            out = conv(self.conv3, out)
-            if mp is not None:  # row-parallel conv3: partial sums reduced
-                out = reduce_from_model_parallel(out, mp)
-            out = bn(self.bn3, out)
+            out = bn(self.bn3, self._conv3(conv, out))
             if spatial_mask3 is not None:
                 out = masking.apply_spatial_mask(out, spatial_mask3)
             out = out + identity
@@ -366,6 +368,24 @@ class LAUDBottleneck(nn.Module):
             spatial_s3=s3, spatial_s2=s2, spatial_s1=s1, channel_s=channel_s,
             flops_perc=sparse_flops / dense_flops, sparse_flops=sparse_flops,
             s3_img=s3_img, dense_flops=dense_flops, flops_img=flops_img)
+
+    def _conv2(self, conv, t, padding=None):
+        """conv2 on the replicated ``t``; under tensor parallelism
+        column-parallel, giving this rank's channels: a grouped conv2 takes
+        its groups' input channels (the split follows whole groups)."""
+        mp = self.tp
+        if mp is None:
+            return conv(self.conv2, t, padding)
+        if self.tp_grouped:
+            return conv(self.conv2, scatter_to_model_parallel(t, mp),
+                        padding, tp=mp)
+        return conv(self.conv2, copy_to_model_parallel(t, mp), padding)
+
+    def _conv3(self, conv, t):
+        """conv3 on conv2's channels; under tensor parallelism
+        row-parallel, its partial sums reduced over the model group."""
+        return conv(self.conv3, t, tp=self.tp,
+                    row_parallel=self.tp is not None)
 
 
 class LAUDResNet(nn.Module):
@@ -396,6 +416,7 @@ class LAUDResNet(nn.Module):
         self.width_mult, self.input_size = width_mult, input_size
         self.dyn_mode = tuple(dyn_mode)
         self.execution, self.conv_impl = execution, conv_impl
+        self.group_width = group_width
         self.compute_dtype = compute_dtype
         stem_width = int(64 * width_mult)
         self.conv1 = make_conv(conv_impl, in_chans, stem_width, 7, 2, 3, **kw)

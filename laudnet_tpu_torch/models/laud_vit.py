@@ -151,9 +151,16 @@ def _linear(m: nn.Linear, x, cd, training: bool = False, qat: bool = False):
     return F.linear(x.to(cd), m.weight.to(cd), m.bias.to(cd))
 
 
-def _row_parallel(m: nn.Linear, x, cd, mp):
+def _row_parallel(m: nn.Linear, x, cd, mp, training: bool = False,
+                  qat: bool = False):
     """A row-parallel product (`parallel/tp.py`): this rank's partial sum,
-    reduced over the 'model' group, then the bias once."""
+    reduced over the 'model' group, then the bias once. A `QuantDense`
+    that `_linear` would run quantised takes its scales over the whole
+    input dim and returns the whole product (`ops/quant.py`)."""
+    if isinstance(m, QuantDense) and (qat or not training):
+        if training:
+            return fake_quant_linear(x, m.weight, m.bias, mp)
+        return m(x, mp)
     w, bias = m.weight, m.bias
     if cd is not None:
         x, w, bias = x.to(cd), w.to(cd), bias.to(cd)
@@ -298,7 +305,7 @@ class LAUDViTBlock(nn.Module):
                       else scatter_to_model_parallel(head_mask, mp))
                 out = reference_vit_attention(qkv, token_mask, hm,
                                               h // mp.size, scale)
-            out = _row_parallel(self.proj, out, cd, mp)
+            out = _row_parallel(self.proj, out, cd, mp, training, qat)
         else:
             attend = (fused_vit_attention if self.attn_impl == "fused"
                       else reference_vit_attention)
@@ -315,7 +322,7 @@ class LAUDViTBlock(nn.Module):
             y = _linear(self.fc1, copy_to_model_parallel(y, mp), cd,
                         training, qat)
             y = _row_parallel(self.fc2, F.gelu(y, approximate="none"), cd,
-                              mp)
+                              mp, training, qat)
         else:
             y = _linear(self.fc1, y, cd, training, qat)
             y = _linear(self.fc2, F.gelu(y, approximate="none"), cd,

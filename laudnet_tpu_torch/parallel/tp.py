@@ -37,7 +37,16 @@ channels split), ``conv3`` row-parallel (input channels split) and the
 classifier ``fc`` column-parallel. BatchNorm ``bn2``, which normalises
 conv2's output channels, holds the same channel slice: JAX keeps it
 replicated and GSPMD reshards around it; a local-slice layout has no
-resharding, so the port splits it with its channels.
+resharding, so the port splits it with its channels. A grouped conv2
+(``group_width`` > 1) is split by whole groups, each rank taking its groups'
+input channels; where the groups do not divide over the axis, conv2, bn2
+and conv3 stay replicated (never split mid-group). The sparse execution
+runs the same layout on its gathered patches.
+
+The quantised products (``linear_impl`` / ``conv_impl`` 'int8' and
+'int8_qat') run the same layout: a row-parallel product takes its scales
+over the whole input dim and sums its int8 partials exactly
+(`ops/quant.py`), so every scale is the unsharded product's.
 
 Sequence parallelism lays the residual stream out token-sharded over the
 'model' dim at the boundaries between blocks, where JAX places its
@@ -70,7 +79,8 @@ VIT_TP_RULES: Tuple[Tuple[str, Tuple[Any, ...]], ...] = (
 )
 
 RESNET_TP_RULES: Tuple[Tuple[str, Tuple[Any, ...]], ...] = (
-    (r".*\.conv2\.weight$", ("model", None, None, None)),  # out channels
+    (r".*\.conv2\.weight$", ("model", None, None, None)),  # out channels,
+    # by whole groups of a grouped conv2 (`_GROUPS` below)
     (r".*\.bn2\.(weight|bias|running_mean|running_var)$", ("model",)),
     (r".*\.conv3\.weight$", (None, "model", None, None)),  # in channels
     (r"(.*\.)?fc\.weight$", ("model", None)),
@@ -81,6 +91,8 @@ RESNET_TP_RULES: Tuple[Tuple[str, Tuple[Any, ...]], ...] = (
 PACKED = ((r".*\.qkv\.(weight|bias)$", 3),)
 # the products whose split must follow whole heads
 _HEADS = r".*\.(qkv|proj)\.(weight|bias)$"
+# the tensors whose split must follow conv2's whole groups
+_GROUPS = r".*\.(conv2|bn2|conv3)\.[a-z_]+$"
 
 
 def packed_sections(name: str) -> int:
@@ -91,7 +103,7 @@ def packed_sections(name: str) -> int:
 
 
 def _spec_for(name: str, shape, rules, axis_size: int,
-              num_heads: Optional[int]):
+              num_heads: Optional[int], group_width: Optional[int] = None):
     for pattern, template in rules:
         if re.match(pattern, name):
             if len(shape) < len(template):
@@ -106,6 +118,9 @@ def _spec_for(name: str, shape, rules, axis_size: int,
             if (num_heads is not None and re.match(_HEADS, name)
                     and num_heads % axis_size):
                 return Replicate()
+            if (group_width and group_width > 1
+                    and re.match(_GROUPS, name) and group_width % axis_size):
+                return Replicate()
             return Shard(dim)
     return Replicate()
 
@@ -117,20 +132,26 @@ def _named_tensors(params):
 
 
 def tensor_parallel_specs(params, rules=VIT_TP_RULES, *, axis: str = "model",
-                          mesh=None, num_heads: Optional[int] = None):
+                          mesh=None, num_heads: Optional[int] = None,
+                          group_width: Optional[int] = None):
     """``{name: Shard(dim) or Replicate()}`` for ``params`` (a module, whose
     parameters and buffers are named, or a dict of tensors) under
     Megatron-style ``rules``. ``mesh`` gives the axis size the split dims
     must divide (without it every dim divides, as JAX's). ``num_heads``
-    keeps qkv and proj replicated where the heads do not divide (a
-    module's own ``num_heads`` is used when it has one)."""
+    keeps qkv and proj replicated where the heads do not divide, and
+    ``group_width`` (conv2's groups) conv2, bn2 and conv3 where the groups
+    do not (a module's own ``num_heads`` / ``group_width`` is used when it
+    has one)."""
     axis_size = 1
     if mesh is not None and axis in mesh.mesh_dim_names:
         axis_size = mesh.size(mesh.mesh_dim_names.index(axis))
-    if num_heads is None and isinstance(params, nn.Module):
-        num_heads = getattr(params, "num_heads", None)
+    if isinstance(params, nn.Module):
+        if num_heads is None:
+            num_heads = getattr(params, "num_heads", None)
+        if group_width is None:
+            group_width = getattr(params, "group_width", None)
     return {name: _spec_for(name, tuple(t.shape), rules, axis_size,
-                            num_heads)
+                            num_heads, group_width)
             for name, t in _named_tensors(params).items()}
 
 
@@ -313,11 +334,6 @@ def shard_params(model: nn.Module, mesh, rules=None, *,
     if rules is None:
         rules = RESNET_TP_RULES if isinstance(model, LAUDResNet) \
             else VIT_TP_RULES
-    if getattr(model, "linear_impl", "dense") != "dense" or getattr(
-            model, "conv_impl", "dense") != "dense":
-        raise NotImplementedError(
-            "tensor parallelism runs float products only: the int8 "
-            "quantisers take per-channel scales over the whole input")
     mp = _model_parallel(mesh, axis)
     specs = tensor_parallel_specs(model, rules, axis=axis, mesh=mesh)
     full_shapes = {n: tuple(t.shape)
@@ -346,10 +362,10 @@ def shard_params(model: nn.Module, mesh, rules=None, *,
             m.tp_mlp = sharded(prefix + "fc1.weight")
         elif isinstance(m, LAUDBottleneck) and sharded(prefix
                                                        + "conv2.weight"):
-            if m.conv2.groups != 1:
-                raise NotImplementedError("tensor parallelism splits a "
-                                          "grouped conv2 nowhere")
             m.tp = mp
+            m.tp_grouped = m.conv2.groups > 1
+            if m.tp_grouped:               # whole groups a rank
+                m.conv2.groups //= mp.size
         elif isinstance(m, (LAUDViT, LAUDResNet)):
             m.tp = mp
             m.tp_head = sharded(prefix + ("head.weight"

@@ -4,7 +4,9 @@
 
 Starts two processes on card 0 and records, for each collective the
 parallel module runs (``all_reduce``, ``broadcast``, ``all_gather``,
-``all_gather_into_tensor``, ``reduce_scatter_tensor``, ``send``/``recv``),
+``all_gather_into_tensor``, ``reduce_scatter_tensor``, ``send``/``recv``,
+and the tensor-parallel int8 products' ``all_reduce`` with ``ReduceOp.MAX``
+on f32 and the SUM of int32),
 whether gloo takes it on CUDA tensors and gives the right answer, and the
 same for what FSDP2 asks of the data group over two ranks (a
 reduce-scatter with ``ReduceOp.AVG``, an all-gather issued on a side
@@ -26,7 +28,7 @@ import time
 
 COLLECTIVES = ("all_reduce", "broadcast", "all_gather",
                "all_gather_into_tensor", "reduce_scatter_tensor",
-               "send_recv")
+               "send_recv", "all_reduce_max", "all_reduce_int32")
 FSDP_TRIALS = ("reduce_scatter_avg", "all_gather_side_stream", "fsdp2_step")
 
 
@@ -42,6 +44,14 @@ def _trial(backend: str, name: str, rank: int, port: int) -> None:
     if name == "all_reduce":
         dist.all_reduce(x)
         ok = x.eq(3).all()
+    elif name == "all_reduce_max":
+        dist.all_reduce(x, op=dist.ReduceOp.MAX)
+        ok = x.eq(2).all()
+    elif name == "all_reduce_int32":
+        n = torch.full((4,), 2 ** 24 + 1 - rank, dtype=torch.int32,
+                       device=dev)
+        dist.all_reduce(n)          # 2^25 + 1: exact in int32, not in f32
+        ok = n.eq(2 ** 25 + 1).all()
     elif name == "broadcast":
         dist.broadcast(x, src=1)
         ok = x.eq(2).all()

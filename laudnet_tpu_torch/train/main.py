@@ -634,6 +634,12 @@ def lay_out(args, model, n_proc: int, local_bs: int, batch_size: int,
             log(f"--tp {args.tp} does not divide {model.num_heads} heads; "
                 "qkv and proj stay replicated and the attention "
                 f"({model.attn_impl}) runs all heads on every rank")
+        if family == "resnet" and model.group_width > 1 and (
+                model.group_width % args.tp):
+            # never split mid-group (`parallel/tp.py::_spec_for`)
+            log(f"--tp {args.tp} does not divide conv2's "
+                f"{model.group_width} groups; conv2, bn2 and conv3 stay "
+                "replicated")
         shard_params(model, mesh, VIT_TP_RULES if family == "vit"
                      else RESNET_TP_RULES)
         layout.tp, layout.tp_specs = model.tp, model.tp_specs

@@ -36,7 +36,10 @@ rounding does (the erf, a contracted multiply-add). The attention
 kernels in f32 sum in full f32 (FFMA) against f32 plain versions: 1e-4 of
 the largest entry (`_f32_tol`). Each registered op (`ops/library.py`) is
 held to its CUDA implementation called directly (the same kernels, bit for
-bit) and passes `torch.library.opcheck`.
+bit) and passes `torch.library.opcheck`. QAT on the card: the fake-quant
+products against the W8A8 ones in f32 with TF32 off, within the summation
+bound of `tools/qat_fidelity.py`, and a QAT step's B5 gradients against
+the plain backward's behind the same forward (cosine 0.999).
 """
 
 import pytest
@@ -992,3 +995,78 @@ def test_probe_segments_forms_launch_as_checked(card):
                 assert r["max_diff"] <= r["bound"]
             else:
                 assert r["launches"] == {"segment": 0, "block": 4}
+
+
+# --- QAT: the fake-quant products against W8A8, the QAT step through B5 ------
+
+@pytest.mark.parametrize("k,n", [(384, 1152), (384, 384), (384, 1536),
+                                 (1536, 384)],
+                         ids=["qkv", "proj", "fc1", "fc2"])
+def test_fake_quant_linear_is_the_w8a8_product(card, k, n):
+    """`fake_quant_linear` against `int8_linear` at DeiT-S's four products
+    (two images' 197 tokens), f32 with TF32 off: within the summation bound
+    of `tools/qat_fidelity.py` (the same codes and scales; only f32's order
+    differs)."""
+    from laudnet_tpu_torch.tools.qat_fidelity import linear_gap
+
+    g = torch.Generator(card).manual_seed(k + n)
+    x = torch.randn(2 * 197, k, generator=g, device=card)
+    w = torch.randn(n, k, generator=g, device=card) * k ** -0.5
+    assert linear_gap(x, w)["ratio"] <= 1.0
+
+
+@pytest.mark.parametrize("hw,c,co", [(56, 64, 256), (28, 128, 512),
+                                     (14, 256, 1024), (7, 512, 2048)],
+                         ids=["stage1", "stage2", "stage3", "stage4"])
+def test_fake_quant_conv_is_the_w8a8_conv(card, hw, c, co):
+    """``QuantConv(fake=True)`` against ``fake=False`` at the flagship's
+    stride-1 conv2 (3x3) and conv3 (1x1) of each stage, batch 2, f32 with
+    TF32 off: within the summation bound of `tools/qat_fidelity.py`."""
+    from laudnet_tpu_torch.ops.quant import QuantConv
+    from laudnet_tpu_torch.tools.qat_fidelity import conv_gap
+
+    g = torch.Generator(card).manual_seed(hw)
+    x = torch.relu(torch.randn(2, hw, hw, c, generator=g, device=card))
+    for conv in (QuantConv(c, c, 3, padding=1, device=card),
+                 QuantConv(c, co, 1, device=card)):
+        assert conv_gap(conv, x)["ratio"] <= 1.0
+
+
+def test_qat_vit_step_through_b5_matches_the_plain_backward(card):
+    """A ``linear_impl='int8_qat'`` LAUD-ViT at DeiT-S width (2 layers,
+    bf16 compute, B4 forward) trained one step at bs8: the gradients of
+    the qkv products through B5 against the same step with the plain
+    backward behind the same forward. Cosine similarity at least 0.999,
+    as `chip_smoke.py` holds the dense step."""
+    import torch.nn.functional as F
+
+    from laudnet_tpu_torch.models import LAUDViT
+    from laudnet_tpu_torch.ops.gating import GumbelNoise
+
+    images = torch.randn(8, 224, 224, 3, generator=torch.Generator(
+        card).manual_seed(1), device=card)
+    labels = torch.arange(8, device=card)
+
+    def qkv_grads():
+        model = LAUDViT(depth=2, dim=384, num_heads=6, num_classes=10,
+                        attn_impl="fused", linear_impl="int8_qat",
+                        compute_dtype=torch.bfloat16, device=card,
+                        generator=torch.Generator(card).manual_seed(0))
+        out = model(images, 1.0, training=True,
+                    noise=GumbelNoise.seeded(2, card))
+        loss = F.cross_entropy(out.logits.float(), labels) + (
+            out.flops_perc.mean() - 0.5) ** 2
+        loss.backward()
+        return torch.cat([b.qkv.weight.grad.flatten()
+                          for b in model.blocks]).float()
+
+    vit_attention.fused_vit_attention.bwd_launches = 0
+    kernel = qkv_grads()
+    assert vit_attention.fused_vit_attention.bwd_launches == 2
+    saved = vit_attention._launch_bwd
+    vit_attention._launch_bwd = vit_attention.reference_vit_attention_bwd
+    try:
+        plain = qkv_grads()
+    finally:
+        vit_attention._launch_bwd = saved
+    assert F.cosine_similarity(kernel, plain, dim=0).item() >= 0.999

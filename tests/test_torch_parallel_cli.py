@@ -77,17 +77,25 @@ def _one_process_model(argv):
                                 log=lambda *a: None).model
 
 
-@pytest.mark.parametrize("layout", ["tp", "tp_indivisible", "pp", "fsdp"])
+@pytest.mark.parametrize("layout", ["tp", "tp_indivisible", "tp_qat",
+                                    "tp_qat_cnn", "pp", "fsdp"])
 def test_parallel_layouts_train_through_the_cli(tmp_path, layout):
     """``--tp 2`` (LAUD-DeiT-S: the fused attention on 3 heads a rank;
     LAUD-DeiT-Ti's 3 heads do not divide: qkv and proj stay replicated and
-    the fused attention runs all heads, as logged), ``--pp 2`` (6 blocks a
-    stage) and ``--fsdp`` (then
+    the fused attention runs all heads, as logged), ``--tp 2 --vit_linear
+    int8_qat`` (LAUD-DeiT-Ti: fc1 and fc2 split) and ``--arch uni_resnet50
+    --tp 2 --conv_impl int8_qat`` (fake-quant products in the steps, W8A8
+    in the validation, fc2 and conv3 with their scales over the whole
+    input),
+    ``--pp 2`` (6 blocks a stage) and ``--fsdp`` (then
     resumed): a finite first loss, the layout logged, and a checkpoint
     that a one-process model of the same flags loads."""
-    arch = ["--arch", "laud_deit_small"] if layout == "tp" else []
+    arch = {"tp": ["--arch", "laud_deit_small"],
+            "tp_qat_cnn": ["--arch", "uni_resnet50"]}.get(layout, [])
     flags = arch + {"tp": ["--tp", "2", "--vit_attn", "fused"],
              "tp_indivisible": ["--tp", "2", "--vit_attn", "fused"],
+             "tp_qat": ["--tp", "2", "--vit_linear", "int8_qat"],
+             "tp_qat_cnn": ["--tp", "2", "--conv_impl", "int8_qat"],
              "pp": ["--pp", "2", "--pp_microbatches", "2"],
              "fsdp": ["--fsdp"]}[layout]
     out = tmp_path / "out"
@@ -95,10 +103,16 @@ def test_parallel_layouts_train_through_the_cli(tmp_path, layout):
     run_ranks(argv + ["--epochs", "1"])
     log = (out / "train.log").read_text()
     assert np.isfinite(_first_loss(log))
-    assert {"tp": "TP: Megatron vit layout over model axis (tp=2, dp=1)",
+    tp_log = "TP: Megatron {} layout over model axis (tp=2, dp=1)"
+    assert {"tp": tp_log.format("vit"),
             "tp_indivisible": "--tp 2 does not divide 3 heads",
+            "tp_qat": tp_log.format("vit"),
+            "tp_qat_cnn": tp_log.format("resnet"),
             "pp": "PP: GPipe 2 stages x 6 layers/stage, 2 microbatches",
             "fsdp": "FSDP: params + optimizer state sharded"}[layout] in log
+    if layout.startswith("tp_qat"):   # the W8A8 validation's metrics
+        rows = (out / "log.txt").read_text().strip().splitlines()
+        assert all(np.isfinite(float(v)) for v in rows[1].split(","))
     payload = torch.load(out / "ckpt" / "step_2.pt", weights_only=True)
     model = _one_process_model(BASE + arch)
     model.load_state_dict(payload["model"])        # the full shapes
